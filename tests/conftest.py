@@ -52,6 +52,11 @@ def pytest_configure(config):
         "runs <5 min even on a machine with a COLD XLA compile cache "
         "(3-D conv compiles dominate cold-suite cost; VERDICT r3 #9)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels); "
+        "skips without one",
+    )
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,62 @@
+"""The port runs without JAX: imported with ``jax`` and ``flax`` blocked, it
+still builds UNet3D and runs a forward on the CPU; and ``chip_smoke.py``
+refuses to run where there is no CUDA card."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = "general_medical_image_segmentation_cnn_framework_tpu_torch"
+
+_NO_JAX = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import importlib, pkgutil
+import torch
+import {PORT}
+for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}."):
+    importlib.import_module(m.name)
+from {PORT}.models.three_d.unet3d import UNet3D
+from {PORT}.ops.sliding_window import sliding_window_predict
+torch.manual_seed(0)
+model = UNet3D(1, 2, 2).eval()
+with torch.inference_mode():
+    y = model(torch.randn(1, 16, 16, 16, 1))
+assert y.shape == (1, 16, 16, 16, 2) and y.dtype == torch.float32 and torch.isfinite(y).all()
+mask = sliding_window_predict(model, torch.randn(20, 16, 18, 1), (16, 16, 16), (4, 4, 4), 2)
+assert mask.shape == (20, 16, 18) and mask.dtype == torch.int8
+loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in ("jax", "flax", "jaxlib")]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_sources_never_import_jax():
+    for path in (ROOT / PORT).rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                assert words[1].split(".")[0] not in ("jax", "flax", "jaxlib"), f"{path}: {line}"
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
