@@ -4,24 +4,62 @@
     python3 chip_smoke.py
 
 from the repository root, on a machine with a CUDA card and ``nvcc``. It
-imports nothing of JAX. Without a card, or without the repository beside
-it, it exits non-zero and prints no result. Phases, each of which stops the
-run with a non-zero exit when it fails:
+imports nothing of JAX or of the JAX package. Without a card, or without
+the repository beside it, it exits non-zero and prints no result. Phases,
+each of which stops the run with a non-zero exit when it fails:
 
-1. The card's name and power limit (``nvidia-smi``); the CUDA kernel is
-   built from ``csrc/`` of the port.
-2. Kernel vs plain version (``conv3d_bn_relu_reference``, f32 cuDNN with
-   TF32 off) at each of UNet3D's 18 conv shapes at patch 64^3, batch 16,
-   with random BatchNorm folded in, in bfloat16 and float32. Tolerances,
-   relative to max(1, max|plain|): 1e-4 in f32 (summation order only);
-   1e-2 in bf16 against the f32 plain result from the same bf16 inputs
-   (one bf16 rounding of the output). Times with CUDA events.
+1. The card's name and power limit (``nvidia-smi``); the three CUDA sources
+   of the port (``csrc/``) are built, one ``nvcc`` each, all at once.
+2. Conv kernel vs plain version (``conv3d_bn_relu_reference``, f32 cuDNN
+   with TF32 off) at each of UNet3D's 18 conv shapes at patch 64^3, batch
+   16, with random BatchNorm folded in, in bfloat16 and float32.
+   Tolerances, relative to max(1, max|plain|): 1e-4 in f32 (summation order
+   only); 1e-2 in bf16 against the f32 plain result from the same bf16
+   inputs (one bf16 rounding of the output). Times with CUDA events.
 3. The port's predict entry point (``predict.main``, config=unet,
    bfloat16, patch 64^3, overlap 4,4,36, batch 16) at full width
    (init_features=32, seeded random weights) on two synthetic 256x256x128
-   volumes. The kernel's launch count must be 18 per forward batch.
+   volumes. The conv kernel's launch count must be 18 per forward batch.
 4. The model on the card (kernel) vs the same module on the CPU (plain),
    f32, one batch of two 64^3 tiles: logits and mask agreement.
+5. The fused BCE + dice kernels (sums, grads) vs their plain versions at the
+   train step's logits, 16 x 64^3 x 2 f32, and at a ragged voxel count:
+   loss sum within 1e-5 relative, the three counts exact, the gradient
+   within 1e-6 * s at the train step's scale s = 1/(2V) and at s = 1 (the
+   gradient is (sigmoid(l) - t) * s, so |gradient| <= s and the limit bites
+   at any s: 1e-6 absolute at s = 1).
+6. The conv's input gradient (``conv3d_input_grad``: the conv kernel on
+   flipped, transposed weights) vs ``torch.nn.grad.conv3d_input`` and its
+   weight gradient (the wgrad kernel) vs its plain version in f64 on the
+   same rounded inputs
+   (so that only the kernel's own rounding is measured) at the 18 conv
+   shapes, batch 16, bf16 and f32. Tolerances as
+   in [2] for the input gradient; the weight gradient is f32 in both
+   dtypes, so 1e-4 for both. Times: the plain version in f32 (TF32 off).
+7. The port's train entry point (``train.main``, config=unet defaults:
+   init_features=32, patch 64^3, batch 16, bf16, Adam, data_backend=device)
+   on the volumes of [3], 3 steps per epoch for 2 epochs: every loss
+   finite, ``latest_checkpoint.ckpt`` and ``checkpoint_0002.ckpt`` written,
+   ``predict.main`` runs from the latest one, and every train step launched
+   18 forward and 17 input-gradient conv kernels, 18 wgrad kernels, one
+   sums and one grads kernel. Then warm steps of ``train.make_train_step``
+   on the trained model and optimizer that ``train.main`` returns, with
+   batches from the device dataset of the same config: the step's time by
+   CUDA events (recorded by hooks on the model, the loss and the optimizer),
+   split into forward, loss, backward and optimizer, and two more steps
+   under ``torch.profiler``: the card's busy share and its time by kernel.
+8. One train step on the card vs the same step on the CPU, f32, UNet3D at
+   init_features=8 with seeded weights, batch 4 x 32^3: loss and every
+   parameter's gradient.
+
+Phases [3] and [7] are the main paths: every launch counter is set to 0
+just before each and read just after; a kernel's ``launches`` in the
+kernel line is the sum over both. The kernel line's times are sums over the
+convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
+the 17 input gradients, conv3d_wgrad the 18 weight gradients (bf16). Bounds (``bound_ms``) are the larger of
+the bytes the work must move (each input read once, each output written
+once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (bf16 tensor cores)
+or 67 TFLOP/s (f32 on CUDA cores), the H100 SXM data-sheet peaks.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -31,24 +69,31 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PORT = "general_medical_image_segmentation_cnn_framework_tpu_torch"
+JAX_SRC = "general_medical_image_segmentation_cnn_framework_tpu"
+SOURCES = ("conv3d_bn_relu", "conv3d_wgrad", "fused_bce_dice")
 PATCH = 64
 BATCH = 16
 VOLUME = (256, 256, 128)
 N_VOLUMES = 2
 OVERLAP = (4, 4, 36)
 LEVELS = (0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0)  # pooling depth of ConvBlock_i
-F32_TOL, BF16_TOL = 1e-4, 1e-2
+F32_TOL, BF16_TOL, WGRAD_TOL = 1e-4, 1e-2, 1e-4
+TRAIN_EPOCHS, SAMPLES_PER_VOLUME = 2, 24  # 2 volumes x 24 patches = 3 batches of 16 per epoch
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
 
 
@@ -69,6 +114,19 @@ def cuda_ms(torch, fn, reps=10):
 def check(ok, msg):
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def bound_ms(flops, nbytes, dtype_name):
+    """(least time in ms, what bounds it) on an H100 SXM."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv_work(voxels, cin, cout, itemsize):
+    """FLOPs and minimal bytes of one k3 s1 conv (forward, input gradient
+    with cin/cout swapped, or weight gradient, which writes f32 weights)."""
+    flops = 2.0 * voxels * 27 * cin * cout
+    return flops, voxels * (cin + cout) * itemsize + 27 * cin * cout * max(itemsize, 4)
 
 
 def random_state_dict(torch, model, seed):
@@ -113,15 +171,23 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a card")
     sys.path.insert(0, str(ROOT))
-    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict
-    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, pipeline, transforms
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, make_dataset, pipeline, transforms
     from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import _build as build
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_wgrad as wgrad_op
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import fused_bce_dice as loss_op
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import sliding_window as sw
 
     kernel, plain = conv.conv3d_bn_relu, conv.conv3d_bn_relu_reference
-    check("jax" not in sys.modules, "the port imported jax")
+    dgrad, dgrad_plain = conv.conv3d_input_grad, conv.conv3d_input_grad_reference
+    wgrad, wgrad_plain = wgrad_op.conv3d_wgrad, wgrad_op.conv3d_wgrad_reference
+    sums, grads = loss_op.bce_dice_sums, loss_op.bce_dice_grads
+    counters = (kernel, dgrad, wgrad, sums, grads)
+    loaded = [m for m in ("jax", "flax", JAX_SRC) if m in sys.modules]
+    check(not loaded, f"the port imported {loaded}")
 
     # -- 1. card and build ---------------------------------------------------
     card = subprocess.run(
@@ -133,20 +199,22 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    build.load("conv3d_bn_relu")
-    print(f"[1] conv3d_bn_relu built in {time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.load, SOURCES))
+    print(f"[1] built {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 2. kernel vs plain at the 18 UNet3D conv shapes ------------------------
     model = UNet3D(1, 2, 32, dtype=torch.bfloat16)
+    widths = [tuple(block.conv.weight.shape[3:]) for block in model.blocks]
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
     max_err = 0.0
-    totals = {torch.bfloat16: [0.0, 0.0, 0.0], torch.float32: [0.0, 0.0, 0.0]}
-    for i, block in enumerate(model.blocks):
-        cin, cout = block.conv.weight.shape[3:]
+    totals = {torch.bfloat16: [0.0, 0.0, 0.0, 0.0], torch.float32: [0.0, 0.0, 0.0, 0.0]}
+    fwd_ops = fwd_bytes = 0.0
+    for i, (cin, cout) in enumerate(widths):
         s = PATCH >> LEVELS[i]
         x = randn(BATCH, s, s, s, cin)
         w, b = conv.fold_batchnorm(
@@ -164,23 +232,41 @@ def main() -> None:
             bound = tol * max(1.0, want.abs().max().item())
             check(got.dtype == dtype and got.shape == want.shape, f"ConvBlock_{i} {dtype}: dtype/shape")
             check(err <= bound, f"ConvBlock_{i} {dtype}: max|kernel-plain| {err} > {bound}")
-            max_err = max(max_err, err)
+            if dtype == torch.bfloat16:
+                max_err = max(max_err, err)
             k_ms = cuda_ms(torch, lambda: kernel(xd, wd, b))
             p_ms = cuda_ms(torch, lambda: plain(xd, wd, b))
             # cuDNN in the working dtype, as a library yardstick
             xc, wc = xd.permute(0, 4, 1, 2, 3), wd.permute(4, 3, 0, 1, 2).contiguous()
             c_ms = cuda_ms(torch, lambda: torch.relu(torch.nn.functional.conv3d(xc, wc, b.to(dtype), padding=1)))
-            for j, v in enumerate((k_ms, p_ms, c_ms)):
+            flops, nbytes = conv_work(BATCH * s**3, cin, cout, xd.element_size())
+            b_ms, _ = bound_ms(flops, nbytes, str(dtype)[6:])
+            if dtype == torch.bfloat16:
+                fwd_ops, fwd_bytes = fwd_ops + flops, fwd_bytes + nbytes
+            for j, v in enumerate((k_ms, p_ms, c_ms, b_ms)):
                 totals[dtype][j] += v
-            line += f" | {str(dtype)[6:]} err {err:.3g} kernel {k_ms:.3f} ms plain {p_ms:.3f} ms cudnn {c_ms:.3f} ms"
+            line += (f" | {str(dtype)[6:]} err {err:.3g} kernel {k_ms:.3f} ms plain {p_ms:.3f} ms "
+                     f"cudnn {c_ms:.3f} ms bound {b_ms:.4f} ms")
             del got, want, xd, wd
         print(line, flush=True)
         del x
-    for dtype, (k, p, c) in totals.items():
+    for dtype, (k, p, c, bd) in totals.items():
         print(f"[2] sum of 18 convs, one forward batch, {str(dtype)[6:]}: kernel {k:.3f} ms, "
-              f"plain {p:.3f} ms, cudnn {c:.3f} ms", flush=True)
+              f"plain {p:.3f} ms, cudnn {c:.3f} ms, bound {bd:.4f} ms", flush=True)
+    launches = {f.__name__: 0 for f in counters}
+
+    def zero_counters():
+        for f in counters:
+            f.launches = 0
+
+    def read_counters():
+        got = {f.__name__: f.launches for f in counters}
+        for name, n in got.items():
+            launches[name] += n
+        return got
 
     # -- 3. predict through the entry point ------------------------------------
+    (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
     try:
         t0 = time.perf_counter()
@@ -202,14 +288,14 @@ def main() -> None:
             f"config.batch_size={BATCH}",
             "config.precision=bfloat16",
         ]
-        kernel.launches = 0
+        zero_counters()
         t0 = time.perf_counter()
         predict.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kernel.launches
-        check(launches == 18 * batches,
-              f"kernel launches {launches} != 18 x {batches} forward batches")
+        predict_launches = read_counters()
+        check(predict_launches["conv3d_bn_relu"] == 18 * batches,
+              f"kernel launches {predict_launches} != 18 x {batches} forward batches")
         (run,) = (work / "runs").glob("predict-*/*")
         rows = (run / "metrics.csv").read_text().splitlines()
         check(rows[0] == "precision,recall,jaccard,dice,hs95" and len(rows) == N_VOLUMES + 2,
@@ -223,7 +309,7 @@ def main() -> None:
         check(mask.shape == (1, *VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0},
               f"mask {mask.shape} {np.unique(mask)[:5]}")
         print(f"[3] predict.main: {N_VOLUMES} volumes, {n_tiles} tiles each, {batches} forward batches, "
-              f"{launches} kernel launches, {wall / N_VOLUMES:.3f} s per volume end to end; "
+              f"launches {predict_launches}, {wall / N_VOLUMES:.3f} s per volume end to end; "
               f"metrics {rows[1:]}", flush=True)
 
         # the device part alone: sliding window on an uploaded volume, warm
@@ -245,10 +331,11 @@ def main() -> None:
             times.append(time.perf_counter() - t0)
         print(f"[3] sliding window on the card, one volume: {', '.join(f'{t:.4f}' for t in times)} s",
               flush=True)
+        del net, vol
 
         # -- 4. the model on the card vs the same module on the CPU, f32 --------
         m32 = UNet3D(1, 2, 32, dtype=torch.float32)
-        m32.load_state_dict(net.state_dict())
+        m32.load_state_dict(checkpoint.load_checkpoint(ckpt)["params"])
         m32.eval()
         c = [int(v) for v in np.argwhere(subject.gt.data[0] > 0).mean(0)]
         starts = [[min(max(c[d] - PATCH // 2 + o, 0), VOLUME[d] - PATCH) for d in range(3)] for o in (0, 16)]
@@ -268,21 +355,278 @@ def main() -> None:
         check(agree >= 0.999, f"model on card vs CPU: mask agreement {agree}")
         print(f"[4] UNet3D f32 card vs CPU: max|diff| {err:.3g} (logit scale {scale:.3g}), "
               f"mask agreement {agree:.6f}", flush=True)
+        del m32
+
+        # -- 5. fused BCE + dice kernels vs plain -----------------------------------
+        loss_rows = {}
+        for shape in ((BATCH, PATCH, PATCH, PATCH), (3, 17, 19, 23)):
+            voxels = math.prod(shape)
+            logits = 3.0 * randn(*shape, 2)
+            gt = (torch.rand(*shape, 1, device=dev, generator=gen) > 0.7).float()
+            got, want = sums(logits, gt), loss_op.bce_dice_sums_reference(logits, gt)
+            torch.cuda.synchronize()
+            loss_err = abs(got[0].item() - want[0].item())
+            check(loss_err <= 1e-5 * abs(want[0].item()), f"bce_dice_sums {shape}: loss sum error {loss_err}")
+            check(got[1:].tolist() == want[1:].tolist(), f"bce_dice_sums {shape}: counts {got[1:]} != {want[1:]}")
+            grad_errs = []
+            for s_val in (0.5 / voxels, 1.0):  # the train step's scale, and 1
+                scale_t = torch.full((1,), s_val, device=dev)
+                d_got, d_want = grads(logits, gt, scale_t), loss_op.bce_dice_grads_reference(logits, gt, scale_t)
+                torch.cuda.synchronize()
+                grad_errs.append((d_got - d_want).abs().max().item())
+                check(d_want.abs().max().item() >= 0.5 * s_val, f"bce_dice_grads {shape}: gradient scale")
+                check(grad_errs[-1] <= 1e-6 * s_val,
+                      f"bce_dice_grads {shape} s={s_val:.3g}: max abs error {grad_errs[-1]} > {1e-6 * s_val}")
+            grad_err = grad_errs[-1]  # at s = 1: in units of the gradient's scale
+            scale_t = torch.full((1,), 0.5 / voxels, device=dev)
+            row = {
+                "sums": (cuda_ms(torch, lambda: sums(logits, gt)),
+                         cuda_ms(torch, lambda: loss_op.bce_dice_sums_reference(logits, gt)),
+                         *bound_ms(20.0 * voxels, 12.0 * voxels + 16, "float32"), loss_err),
+                "grads": (cuda_ms(torch, lambda: grads(logits, gt, scale_t)),
+                          cuda_ms(torch, lambda: loss_op.bce_dice_grads_reference(logits, gt, scale_t)),
+                          *bound_ms(10.0 * voxels, 20.0 * voxels + 4, "float32"), grad_err),
+            }
+            target = torch.cat([1.0 - gt, gt], dim=-1)
+            bce_ms = cuda_ms(torch, lambda: torch.nn.functional.binary_cross_entropy_with_logits(logits, target))
+            if shape[0] == BATCH:
+                loss_rows = row
+            print(f"[5] {shape} x 2 f32 logits: sums err {loss_err:.3g} kernel {row['sums'][0]:.4f} ms "
+                  f"plain {row['sums'][1]:.4f} ms bound {row['sums'][2]:.4f} ms | grads err {grad_errs[0]:.3g} "
+                  f"at s=1/(2V), {grad_errs[1]:.3g} at s=1, "
+                  f"kernel {row['grads'][0]:.4f} ms plain {row['grads'][1]:.4f} ms bound {row['grads'][2]:.4f} ms"
+                  f" | F.binary_cross_entropy_with_logits (the loss alone, for scale) {bce_ms:.4f} ms", flush=True)
+            del logits, gt, target, d_got, d_want
+
+        # -- 6. input and weight gradients at the 18 conv shapes ------------------
+        bw = {dt: {"dgrad": [0.0] * 4, "wgrad": [0.0] * 4} for dt in ("bfloat16", "float32")}
+        wgrad_err = dgrad_err = 0.0
+        wgrad_ops = wgrad_bytes = dgrad_ops = dgrad_bytes = 0.0
+        for i, (cin, cout) in enumerate(widths):
+            s = PATCH >> LEVELS[i]
+            x, g = randn(BATCH, s, s, s, cin), randn(BATCH, s, s, s, cout)
+            w = randn(3, 3, 3, cin, cout) * (27 * cin) ** -0.5
+            line = f"[6] ConvBlock_{i:<2d} {cin:>3d}->{cout:<3d} {BATCH}x{s}^3"
+            for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+                name = str(dtype)[6:]
+                xd, gd, wd = x.to(dtype), g.to(dtype), w.to(dtype)
+                flops, nbytes = conv_work(BATCH * s**3, cin, cout, xd.element_size())
+                if i > 0:  # the stem's input is data: its input gradient is never taken
+                    dx = dgrad(gd, wd)
+                    torch.cuda.synchronize()
+                    want = torch.nn.grad.conv3d_input(
+                        (BATCH, cin, s, s, s), wd.float().permute(4, 3, 0, 1, 2), gd.float().permute(0, 4, 1, 2, 3),
+                        padding=1,
+                    ).permute(0, 2, 3, 4, 1)
+                    err = (dx.float() - want).abs().max().item()
+                    check(err <= tol * max(1.0, want.abs().max().item()), f"dgrad ConvBlock_{i} {name}: error {err}")
+                    wc, gc = wd.permute(4, 3, 0, 1, 2).contiguous(), gd.permute(0, 4, 1, 2, 3)
+                    t = (cuda_ms(torch, lambda: dgrad(gd, wd)),
+                         cuda_ms(torch, lambda: dgrad_plain(gd, wd)),
+                         cuda_ms(torch, lambda: torch.nn.grad.conv3d_input((BATCH, cin, s, s, s), wc, gc, padding=1)),
+                         bound_ms(flops, nbytes, name)[0])
+                    for j, v in enumerate(t):
+                        bw[name]["dgrad"][j] += v
+                    if dtype == torch.bfloat16:
+                        dgrad_err = max(dgrad_err, err)
+                        dgrad_ops, dgrad_bytes = dgrad_ops + flops, dgrad_bytes + nbytes
+                    line += f" | {name} dgrad err {err:.3g} kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} bound {t[3]:.4f}"
+                    del dx, want
+                dw = wgrad(xd, gd)
+                torch.cuda.synchronize()
+                want = wgrad_plain(xd.double(), gd.double())  # f64: exact on the same rounded inputs
+                err = (dw.double() - want).abs().max().item()
+                check(dw.dtype == torch.float32 and dw.shape == want.shape, f"wgrad ConvBlock_{i} {name}: dtype/shape")
+                check(err <= WGRAD_TOL * max(1.0, want.abs().max().item()), f"wgrad ConvBlock_{i} {name}: error {err}")
+                xc, gc = xd.permute(0, 4, 1, 2, 3), gd.permute(0, 4, 1, 2, 3)
+                t = (cuda_ms(torch, lambda: wgrad(xd, gd)),
+                     cuda_ms(torch, lambda: wgrad_plain(xd, gd)),
+                     cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(xc, (cout, cin, 3, 3, 3), gc, padding=1)),
+                     bound_ms(flops, nbytes, name)[0])
+                for j, v in enumerate(t):
+                    bw[name]["wgrad"][j] += v
+                if dtype == torch.bfloat16:
+                    wgrad_err = max(wgrad_err, err)
+                    wgrad_ops, wgrad_bytes = wgrad_ops + flops, wgrad_bytes + nbytes
+                line += f" | {name} wgrad err {err:.3g} kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} bound {t[3]:.4f}"
+                del dw, want, xd, gd, wd
+            print(line + " (ms)", flush=True)
+            del x, g, w
+        for name, parts in bw.items():
+            fwd = totals[getattr(torch, name)]
+            print(f"[6] sums per train step, {name}: forward (18) kernel {fwd[0]:.3f} ms, "
+                  + ", ".join(f"{k} ({17 if k == 'dgrad' else 18}) kernel {v[0]:.3f} ms plain {v[1]:.3f} ms "
+                              f"cudnn {v[2]:.3f} ms bound {v[3]:.4f} ms" for k, v in parts.items())
+                  + f"; all conv kernels {fwd[0] + parts['dgrad'][0] + parts['wgrad'][0]:.3f} ms", flush=True)
+
+        # -- 7. train through the entry point ------------------------------------
+        steps = TRAIN_EPOCHS * (N_VOLUMES * SAMPLES_PER_VOLUME // BATCH)
+        train_argv = [
+            "config=unet",
+            f"config.data_path={work / 'data' / 'source'}",
+            f"config.gt_path={work / 'data' / 'label'}",
+            f"config.output_dir={work / 'train_runs'}",
+            f"config.patch_size={PATCH}, {PATCH}, {PATCH}",
+            f"config.batch_size={BATCH}",
+            f"config.samples_per_volume={SAMPLES_PER_VOLUME}",
+            f"config.epochs={TRAIN_EPOCHS}",
+            f"config.epochs_per_checkpoint={TRAIN_EPOCHS}",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        out = train.main(train_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        want_launches = {"conv3d_bn_relu": 18 * steps, "conv3d_input_grad": 17 * steps,
+                         "conv3d_wgrad": 18 * steps, "bce_dice_sums": steps, "bce_dice_grads": steps}
+        check(train_launches == want_launches, f"train launches {train_launches} != {want_launches}")
+        (run,) = (work / "train_runs").glob("train-*/*")
+        losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+                  if line.startswith("Loss: ")]
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"train losses {losses}")
+        latest = checkpoint.load_checkpoint(run / "latest_checkpoint.ckpt")
+        check(latest["epoch"] == TRAIN_EPOCHS and latest["optimizer"] == "adam" and latest["opt_state"]["state"],
+              "latest_checkpoint.ckpt")
+        check((run / f"checkpoint_{TRAIN_EPOCHS:04d}.ckpt").exists(), "periodic checkpoint")
+        print(f"[7] train.main: {steps} steps in {wall:.1f} s (build and data included), launches "
+              f"{train_launches}, losses {[round(v, 5) for v in losses]}, dice of the last epoch "
+              f"{out['dice']:.4f}, peak memory {peak_gb:.2f} GiB", flush=True)
+
+        one = work / "one"
+        for split in ("source", "label"):
+            (one / split).mkdir(parents=True)
+            os.symlink(work / "data" / split / "vol-00.nii.gz", one / split / "vol-00.nii.gz")
+        zero_counters()
+        predict.main(argv[:1] + [f"config.pred_data_path={one / 'source'}", f"config.pred_gt_path={one / 'label'}",
+                                 f"config.output_dir={work / 'runs_trained'}",
+                                 f"config.ckpt={run / 'latest_checkpoint.ckpt'}"] + argv[5:])
+        after = read_counters()
+        check(after["conv3d_bn_relu"] == 18 * -(-n_tiles // BATCH), f"predict after train: launches {after}")
+        (pred_run,) = (work / "runs_trained").glob("predict-*/*")
+        print(f"[7] predict.main from the trained checkpoint: "
+              f"{(pred_run / 'metrics.csv').read_text().splitlines()[1]}", flush=True)
+
+        # warm steps of the entry point's train step on the device dataset's
+        # batches; CUDA events recorded by hooks split each step
+        cfg = compose(train_argv, job_name="train", make_run_dir=False)
+        net, opt = out["model"], out["optimizer"]
+        dataset = make_dataset(cfg, is_train=True, device=dev)
+        reps = 5
+        step_batches = []
+        while len(step_batches) < reps + 2:
+            step_batches.extend(dataset)
+        marks = []
+
+        def mark(*_):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+        loss_fn = train.make_loss_and_metric(cfg)
+
+        def marked_loss(pred, gt):
+            result = loss_fn(pred, gt)
+            mark()
+            return result
+
+        hooks = [net.register_forward_pre_hook(mark), net.register_forward_hook(mark),
+                 opt.register_step_pre_hook(mark), opt.register_step_post_hook(mark)]
+        step = train.make_train_step(net, opt, marked_loss)
+        split = np.zeros(4)
+        for rep, (xb, yb) in enumerate(step_batches[:reps + 2]):
+            marks.clear()
+            step(xb, yb)
+            check(len(marks) == 5, f"train step hooks fired {len(marks)} times, not 5")
+            marks[-1].synchronize()
+            if rep >= 2:  # two warm-up steps
+                split += [marks[k].elapsed_time(marks[k + 1]) for k in range(4)]
+        for h in hooks:
+            h.remove()
+        split /= reps
+        step_ms = split.sum()
+        print(f"[7] warm train step (bf16, f=32, {BATCH}x{PATCH}^3): {step_ms:.3f} ms, "
+              f"{1e3 * BATCH / step_ms:.1f} samples/s; forward {split[0]:.3f} ms, loss {split[1]:.3f} ms, "
+              f"backward {split[2]:.3f} ms, optimizer {split[3]:.3f} ms", flush=True)
+
+        # two more warm steps under torch.profiler: the card's time by kernel
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for xb, yb in step_batches[:2]:
+                step(xb, yb)
+            torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0)
+        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+        if not on_card:
+            print("[7] profile: the profiler recorded no device time (not measured)", flush=True)
+        else:
+            print(f"[7] profile of 2 warm steps: the card busy {busy_ms:.1f} of {window_ms:.1f} ms "
+                  f"({100 * busy_ms / window_ms:.1f}%); per step, the 15 largest kernels:", flush=True)
+            for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]:
+                print(f"[7]   {e.self_device_time_total / 2e3:8.3f} ms  x{e.count // 2:<4d} {e.key[:100]}", flush=True)
+        del net, opt, out, dataset, step_batches, xb, yb, step
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "conv3d_bn_relu",
-        "route": "cuda",
-        "source": f"{PORT}/csrc/conv3d_bn_relu.cu",
-        "replaces": "general_medical_image_segmentation_cnn_framework_tpu/ops/pallas_conv.py:122; "
-                    "general_medical_image_segmentation_cnn_framework_tpu/ops/pallas_tlayout.py:264; "
-                    "general_medical_image_segmentation_cnn_framework_tpu/ops/pallas_tlayout.py:481",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": totals[torch.bfloat16][0],
-        "plain_ms": totals[torch.bfloat16][1],
-    }]}))
+    # -- 8. one train step on the card vs the CPU, f32 ---------------------------
+    cfg = ConfigDict(out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
+    rng = np.random.default_rng(SEED + 8)
+    xs = torch.from_numpy(rng.normal(size=(4, 32, 32, 32, 1)).astype(np.float32))
+    ys = torch.from_numpy((rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32))
+    sd = random_state_dict(torch, UNet3D(1, 2, 8), SEED + 8)
+    results = []
+    for device in (torch.device("cpu"), dev):
+        net = UNet3D(1, 2, 8)
+        net.load_state_dict(sd)
+        net.to(device).train()
+        loss, _ = train.make_loss_and_metric(cfg)(net(xs.to(device)), ys.to(device))
+        loss.backward()
+        results.append((loss.item(), {n: p.grad.detach().cpu() for n, p in net.named_parameters()}))
+    (cpu_loss, cpu_grads), (gpu_loss, gpu_grads) = results
+    check(abs(gpu_loss - cpu_loss) <= 1e-5 * cpu_loss, f"train step loss card {gpu_loss} vs CPU {cpu_loss}")
+    worst = bias_worst = 0.0
+    for name, want in cpu_grads.items():
+        diff = (gpu_grads[name] - want).abs().max().item()
+        if name.endswith("conv.bias"):  # true gradient 0: BatchNorm removes the shift
+            bias_worst = max(bias_worst, diff)
+        else:
+            worst = max(worst, diff / want.abs().max().item())
+    check(worst <= 2e-3, f"train step gradients card vs CPU: worst relative error {worst}")
+    check(bias_worst <= 1e-5, f"train step conv-bias gradients card vs CPU: {bias_worst}")
+    print(f"[8] UNet3D f=8 train step f32, card vs CPU: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, worst gradient "
+          f"error {worst:.3g} of the tensor's largest, conv biases (true gradient 0) {bias_worst:.3g}", flush=True)
+
+    def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err):
+        return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+
+    bf = totals[torch.bfloat16]
+    dg, wg = bw["bfloat16"]["dgrad"], bw["bfloat16"]["wgrad"]
+    print(json.dumps({"kernels": [
+        entry("conv3d_bn_relu", "conv3d_bn_relu.cu",
+              f"{JAX_SRC}/ops/pallas_conv.py:122; {JAX_SRC}/ops/pallas_conv.py:217; "
+              f"{JAX_SRC}/ops/pallas_tlayout.py:264; {JAX_SRC}/ops/pallas_tlayout.py:481",
+              bf[0], bf[1], bf[3], bound_ms(fwd_ops, fwd_bytes, "bfloat16")[1], bf[2], max_err),
+        entry("conv3d_input_grad", "conv3d_bn_relu.cu",
+              f"{JAX_SRC}/ops/pallas_conv.py:122 (the input gradient at :271); "
+              f"{JAX_SRC}/ops/pallas_tlayout.py:264 (the input gradient at :859)",
+              dg[0], dg[1], dg[3], bound_ms(dgrad_ops, dgrad_bytes, "bfloat16")[1], dg[2], dgrad_err),
+        entry("conv3d_wgrad", "conv3d_wgrad.cu", f"{JAX_SRC}/ops/pallas_tlayout.py:806",
+              wg[0], wg[1], wg[3], bound_ms(wgrad_ops, wgrad_bytes, "bfloat16")[1], wg[2], wgrad_err),
+        entry("bce_dice_sums", "fused_bce_dice.cu", f"{JAX_SRC}/ops/fused.py:81",
+              loss_rows["sums"][0], loss_rows["sums"][1], loss_rows["sums"][2], loss_rows["sums"][3], None,
+              loss_rows["sums"][4]),
+        entry("bce_dice_grads", "fused_bce_dice.cu", f"{JAX_SRC}/ops/fused.py:125",
+              loss_rows["grads"][0], loss_rows["grads"][1], loss_rows["grads"][2], loss_rows["grads"][3], None,
+              loss_rows["grads"][4]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -2,14 +2,17 @@
 
 A second package beside the JAX package
 ``general_medical_image_segmentation_cnn_framework_tpu``, which stays the
-reference the port is tested against. Module paths mirror the JAX
-package's. Public tensors are channels-last (NDHWC), as there.
+reference the port is tested against; the port imports nothing of it.
+Module paths mirror the JAX package's. Public tensors are channels-last
+(NDHWC), as there.
 
-Ported so far: the UNet3D sliding-window predict path (``predict``), with
-every eval ConvBlock running the hand-written CUDA kernel
-``ops.conv3d_bn_relu`` on a CUDA card. The host layers (config, NIfTI/MHD
-I/O, transforms, subject discovery, tile grid, logging) are the JAX
-package's own JAX-free modules, imported through thin modules here.
+Ported so far: UNet3D training (``train``) and sliding-window predict
+(``predict``) on the default paths. On a CUDA card every k3 s1 conv runs
+hand-written kernels: the forward and its input gradient
+``ops.conv3d_bn_relu``, the weight gradient ``ops.conv3d_wgrad``; the
+BCE + dice loss/metric and its gradient run ``ops.fused_bce_dice``. The
+host layers (config, NIfTI/MHD I/O, transforms, subject discovery, tile
+grid, logging) are the port's own copies of the JAX package's modules.
 """
 
 __version__ = "0.1.0"

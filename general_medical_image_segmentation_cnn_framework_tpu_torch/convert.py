@@ -1,14 +1,20 @@
 """Carry UNet3D weights from the JAX package to the port.
 
-``unet3d_state_dict_from_flax`` maps the Flax variable tree onto the port's
-``state_dict``. The port keeps the Flax layouts (conv kernels
-[kd, kh, kw, Cin, Cout]), so only names change, plus the 1x1x1 head, which
-becomes an ``nn.Linear``.
+``unet3d_state_dict_from_flax`` maps the Flax variable tree (params and
+batch_stats) onto the port's ``state_dict``. The port keeps the Flax
+layouts (conv kernels [kd, kh, kw, Cin, Cout]), so only names change, plus
+the 1x1x1 head, which becomes an ``nn.Linear``. ``adam_state_from_optax``
+turns the JAX package's Adam state (``inject_hyperparams(optax.adam)``)
+into a ``torch.optim.Adam`` state dict: mu -> exp_avg, nu -> exp_avg_sq,
+count -> step. The two updates agree: torch's
+lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps) is optax's
+lr * m_hat / (sqrt(v_hat) + eps).
 
 ``read_flax_msgpack`` reads a JAX ``.ckpt`` (``checkpoint.save_checkpoint``
 of the JAX package: flax msgpack of {params, batch_stats, opt_state, epoch})
 with ``msgpack`` alone, and ``convert_checkpoint`` writes the port's
-checkpoint from it::
+checkpoint from it, with the Adam state when the file has one, so that
+``load_mode=1`` in the port resumes a JAX run::
 
     python -m general_medical_image_segmentation_cnn_framework_tpu_torch.convert \\
         latest_checkpoint.ckpt unet3d.pt
@@ -37,26 +43,32 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def convblock_state_dict_from_flax(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """One Flax ``ConvBlock`` scope -> the port ConvBlock's state_dict."""
-    conv, bn, stats = params["TorchConv_0"], params["BatchNorm_0"], batch_stats["BatchNorm_0"]
-    return {
+def convblock_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """One Flax ``ConvBlock`` scope -> the port ConvBlock's state_dict; its
+    parameters alone when ``batch_stats`` is None."""
+    conv, bn = params["TorchConv_0"], params["BatchNorm_0"]
+    sd = {
         "conv.weight": _t(conv["kernel"]),
         "conv.bias": _t(conv["bias"]),
         "bn.weight": _t(bn["scale"]),
         "bn.bias": _t(bn["bias"]),
-        "bn.running_mean": _t(stats["mean"]),
-        "bn.running_var": _t(stats["var"]),
     }
+    if batch_stats is not None:
+        sd["bn.running_mean"] = _t(batch_stats["BatchNorm_0"]["mean"])
+        sd["bn.running_var"] = _t(batch_stats["BatchNorm_0"]["var"])
+    return sd
 
 
 def unet3d_state_dict_from_flax(
-    params: Mapping, batch_stats: Mapping
+    params: Mapping, batch_stats: Optional[Mapping] = None
 ) -> Dict[str, torch.Tensor]:
-    """Flax UNet3D ``params``/``batch_stats`` (numpy leaves) -> port state_dict."""
+    """Flax UNet3D ``params``/``batch_stats`` (numpy leaves) -> port
+    state_dict. Without ``batch_stats``: the parameters alone, for any tree
+    shaped like ``params`` (its gradients, or Adam's mu or nu)."""
     sd: Dict[str, torch.Tensor] = {}
     for i in range(N_BLOCKS):
-        block = convblock_state_dict_from_flax(params[f"ConvBlock_{i}"], batch_stats[f"ConvBlock_{i}"])
+        stats = None if batch_stats is None else batch_stats[f"ConvBlock_{i}"]
+        block = convblock_state_dict_from_flax(params[f"ConvBlock_{i}"], stats)
         sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
     for i in range(N_UPS):
         up = params[f"TorchConvTranspose_{i}"]
@@ -67,6 +79,28 @@ def unet3d_state_dict_from_flax(
     sd["head.weight"] = _t(kernel.reshape(kernel.shape[-2], kernel.shape[-1]).T)
     sd["head.bias"] = _t(head["bias"])
     return sd
+
+
+def adam_state_from_optax(opt_state: Mapping, model: torch.nn.Module) -> Dict:
+    """The JAX package's ``inject_hyperparams(optax.adam)`` state (as
+    ``flax.serialization.to_state_dict`` stores it) -> the state dict of a
+    ``torch.optim.Adam`` over ``model.parameters()``."""
+    inner, hyper = opt_state["inner_state"]["0"], opt_state["hyperparams"]
+    mu, nu = unet3d_state_dict_from_flax(inner["mu"]), unet3d_state_dict_from_flax(inner["nu"])
+    names = [name for name, _ in model.named_parameters()]
+    template = torch.optim.Adam(model.parameters()).state_dict()
+    step = float(np.asarray(inner["count"]))
+    group = dict(template["param_groups"][0])
+    group.update(
+        lr=float(np.asarray(hyper["learning_rate"])),
+        betas=(float(np.asarray(hyper["b1"])), float(np.asarray(hyper["b2"]))),
+        eps=float(np.asarray(hyper["eps"])),
+    )
+    state = {
+        i: {"step": torch.tensor(step), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, name in enumerate(names)
+    }
+    return {"state": state, "param_groups": [group]}
 
 
 def _ndarray(data: bytes, msgpack) -> np.ndarray:
@@ -105,10 +139,18 @@ def _has_chunked(tree) -> bool:
 
 
 def convert_checkpoint(src: Union[str, Path], dst: Union[str, Path]) -> None:
-    """JAX UNet3D ``.ckpt`` -> the port's checkpoint at ``dst``."""
+    """JAX UNet3D ``.ckpt`` -> the port's checkpoint at ``dst``, with the Adam
+    state when ``src`` has one (else weights only)."""
+    from .models.three_d.unet3d import UNet3D
+
     state = read_flax_msgpack(src)
     sd = unet3d_state_dict_from_flax(state["params"], state["batch_stats"])
-    save_checkpoint(dst, sd, int(state.get("epoch", 0)))
+    opt_state = optimizer = None
+    if state.get("opt_state"):
+        stem, head = sd["blocks.0.conv.weight"], sd["head.weight"]
+        model = UNet3D(stem.shape[3], head.shape[0], stem.shape[4])
+        opt_state, optimizer = adam_state_from_optax(state["opt_state"], model), "adam"
+    save_checkpoint(dst, sd, int(state.get("epoch", 0)), opt_state, optimizer)
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -1,20 +1,39 @@
-"""Host-side segmentation metrics of the predict path.
+"""Segmentation metrics: the device half of the train step, on tensors, and
+the host half of the predict path, on numpy arrays.
 
-The JAX package's metrics.py imports jax.numpy for its device-side
-train metrics, so its numpy/scipy half is carried here unchanged:
-seg_metrics follows the reference's metric(gt, pred, spacing) with
-smooth=0.001 in every denominator, and hausdorff_95 is the undirected
-95th-percentile Hausdorff distance from scipy distance transforms.
+Counterpart of the JAX package's ``metrics.py``. ``confusion_counts`` and
+``dice_jaccard`` are its device-side train metrics; ``seg_metrics``
+follows the reference's metric(gt, pred, spacing) with smooth=0.001 in
+every denominator, and ``hausdorff_95`` is the undirected 95th-percentile
+Hausdorff distance from scipy distance transforms.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 from scipy import ndimage
 
 SMOOTH = 0.001
+
+
+def confusion_counts(gt: torch.Tensor, pred: torch.Tensor):
+    """Binary confusion counts of {0,1}-valued tensors of any shape, as f32
+    scalars: (tp, fp, fn, tn, gt_sum, pred_sum, intersection, union)."""
+    g, p = gt.float(), pred.float()
+    tp = (g * p).sum()
+    fp = (p * (1 - g)).sum()
+    fn = (g * (1 - p)).sum()
+    tn = ((1 - g) * (1 - p)).sum()
+    return tp, fp, fn, tn, g.sum(), p.sum(), tp, tp + fp + fn
+
+
+def dice_jaccard(gt: torch.Tensor, pred: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(jaccard, dice) with the reference's smooth=0.001."""
+    tp, fp, fn, tn, g_sum, p_sum, inter, union = confusion_counts(gt, pred)
+    return inter / (union + SMOOTH), 2 * inter / (g_sum + p_sum + SMOOTH)
 
 
 def _surface(mask: np.ndarray) -> np.ndarray:

@@ -8,6 +8,13 @@ ConvBlocks are ``blocks[0..17]`` in call order (the JAX ``ConvBlock_i``).
 ``dtype`` is the compute dtype: with bfloat16, activations and folded conv
 weights are bfloat16 while parameters, BatchNorm folding and biases stay
 float32, and the head's logits are cast to float32, as in the JAX model.
+One module tree serves train mode (the conv kernels with their gradients,
+batch-statistics BatchNorm) and eval mode (BatchNorm folded into one
+kernel per ConvBlock).
+
+Kernels are initialised by ``init_type`` (``nn.init``) from a
+``torch.Generator`` seeded with ``seed``; the head, a plain Flax
+``nn.Conv`` in the JAX model, keeps Flax's default LeCun-normal init.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 from torch import nn
 
 from ...nn.blocks import ConvBlock, TorchConvTranspose, max_pool
+from ...nn.init import lecun_normal
 
 
 class UNet3D(nn.Module):
@@ -25,9 +33,12 @@ class UNet3D(nn.Module):
         out_channels: int = 2,
         init_features: int = 32,
         dtype: torch.dtype = torch.float32,
+        init_type: str = "none",
+        seed: int = 0,
     ):
         super().__init__()
         self.dtype = dtype
+        gen = torch.Generator().manual_seed(seed)
         f = init_features
         widths = [
             (in_channels, f), (f, f), (f, 2 * f), (2 * f, 2 * f),
@@ -36,21 +47,27 @@ class UNet3D(nn.Module):
             (16 * f, 8 * f), (8 * f, 8 * f), (8 * f, 4 * f), (4 * f, 4 * f),
             (4 * f, 2 * f), (2 * f, 2 * f), (2 * f, f), (f, f),
         ]
-        self.blocks = nn.ModuleList(ConvBlock(ci, co, dtype) for ci, co in widths)
+        self.blocks = nn.ModuleList(ConvBlock(ci, co, dtype, init_type, gen) for ci, co in widths)
         self.ups = nn.ModuleList(
-            TorchConvTranspose(ci, co, dtype)
+            TorchConvTranspose(ci, co, dtype, init_type, gen)
             for ci, co in ((16 * f, 8 * f), (8 * f, 4 * f), (4 * f, 2 * f), (2 * f, f))
         )
         self.head = nn.Linear(f, out_channels)  # the 1x1x1 conv on channels-last
+        with torch.no_grad():
+            self.head.weight.copy_(lecun_normal((f, out_channels), gen).T)
+            self.head.bias.zero_()
 
     @classmethod
     def from_config(cls, config) -> "UNet3D":
-        """The model the CLIs build: ``UNet3D(in_classes, out_classes, 32)``."""
+        """The model the CLIs build: ``UNet3D(in_classes, out_classes, 32)``
+        with ``config.init_type`` drawn from ``config.seed``."""
         return cls(
             in_channels=config.in_classes,
             out_channels=config.out_classes,
             init_features=32,
             dtype=torch.bfloat16 if getattr(config, "precision", "") == "bfloat16" else torch.float32,
+            init_type=getattr(config, "init_type", "none") or "none",
+            seed=int(getattr(config, "seed", 0) or 0),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -4,37 +4,44 @@ Parameters are float32 and keep the JAX package's layouts, so converted
 checkpoints need no transposes: conv kernels are [kd, kh, kw, Cin, Cout].
 Each block computes in its ``dtype`` (float32 or bfloat16) by casting its
 input and weights explicitly, as the JAX blocks do; BatchNorm folding and
-biases stay float32.
+biases stay float32. Kernels are initialised by ``config.init_type``
+(``nn.init``) from the ``torch.Generator`` the model passes in.
 """
 
 from __future__ import annotations
 
-import math
+from typing import Optional
 
 import torch
 from torch import nn
 
-from ..ops.conv3d_bn_relu import conv3d_bn_relu, conv3d_bn_relu_reference, fold_batchnorm
+from ..ops.conv3d_bn_relu import conv3d_bn_relu, conv3d_k3s1, fold_batchnorm
+from .init import bias_initializer, kernel_initializer
 from .norm import BatchNorm
 
 
-def _kaiming_normal(shape, fan_in: int) -> torch.Tensor:
-    return torch.randn(shape) * math.sqrt(2.0 / fan_in)
+def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(0)
 
 
 class TorchConv(nn.Module):
-    """k3 s1 p1 Conv3d with bias; ``weight`` is [3, 3, 3, Cin, Cout]."""
+    """k3 s1 p1 Conv3d with bias; ``weight`` is [3, 3, 3, Cin, Cout].
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+    Runs ``conv3d_k3s1``: the hand-written kernels on a card (forward,
+    input gradient and weight gradient), their plain versions on the CPU."""
+
+    def __init__(
+        self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+        init_type: str = "none", generator: Optional[torch.Generator] = None,
+    ):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(_kaiming_normal((3, 3, 3, cin, cout), 27 * cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        gen = _generator(generator)
+        self.weight = nn.Parameter(kernel_initializer(init_type)((3, 3, 3, cin, cout), gen))
+        self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d_bn_relu_reference(
-            x.to(self.dtype), self.weight.to(self.dtype), self.bias, relu=False
-        )
+        return conv3d_k3s1(x.to(self.dtype).contiguous(), self.weight, self.bias)
 
 
 class ConvBlock(nn.Module):
@@ -42,12 +49,16 @@ class ConvBlock(nn.Module):
 
     In eval mode BatchNorm is folded into the conv (in f32) and the block is
     one ``conv3d_bn_relu`` call: the CUDA kernel on a card, its plain
-    version on the CPU. Train mode runs the three ops plainly."""
+    version on the CPU. Train mode runs ``TorchConv`` (the kernels with
+    their gradients), then train-mode BatchNorm and ReLU with autograd."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+        init_type: str = "none", generator: Optional[torch.Generator] = None,
+    ):
         super().__init__()
         self.dtype = dtype
-        self.conv = TorchConv(cin, cout, dtype)
+        self.conv = TorchConv(cin, cout, dtype, init_type, generator)
         self.bn = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -66,11 +77,15 @@ class TorchConvTranspose(nn.Module):
     which applies the kernel spatially flipped: torch's ConvTranspose3d
     weight [Cin, Cout, kd, kh, kw] is ``weight.flip((0, 1, 2))`` permuted."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+        init_type: str = "none", generator: Optional[torch.Generator] = None,
+    ):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(_kaiming_normal((2, 2, 2, cin, cout), 8 * cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        gen = _generator(generator)
+        self.weight = nn.Parameter(kernel_initializer(init_type)((2, 2, 2, cin, cout), gen))
+        self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, d, h, w, cin = x.shape

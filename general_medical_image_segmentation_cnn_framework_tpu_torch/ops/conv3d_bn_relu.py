@@ -12,6 +12,14 @@ For a CUDA tensor the wrapper launches the kernel, and a failed build or
 launch raises. For a CPU tensor it computes ``conv3d_bn_relu_reference``,
 the plain PyTorch version, which is also the kernel's oracle in the tests
 and in ``chip_smoke.py``.
+
+The train-mode conv is ``conv3d_k3s1``, the counterpart of the JAX
+package's ``ops/pallas_conv.pallas_conv3d`` (and of the custom VJP of
+``ops/pallas_tlayout.conv3d_tlayout``): its forward is this kernel with
+relu=False and the conv bias in the kernel's bias, its input gradient is
+``conv3d_input_grad`` (this kernel again on the spatially flipped,
+Cin<->Cout-transposed weights, with its own launch count), and its weight
+gradient is ``ops.conv3d_wgrad``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv3d_wgrad import conv3d_wgrad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -92,18 +101,7 @@ def _kernel():
     return fn
 
 
-def conv3d_bn_relu(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
-) -> torch.Tensor:
-    """y = [relu](conv3d_k3s1_same(x, w) + b), NDHWC in x's dtype.
-
-    x [N,D,H,W,Cin] float32 or bfloat16; w [3,3,3,Cin,Cout] in x's dtype
-    (BN folded in); b float32 [Cout]. A CUDA tensor runs the CUDA kernel and
-    adds one to ``conv3d_bn_relu.launches``; a CPU tensor runs
-    ``conv3d_bn_relu_reference``."""
-    _check(x, w, b)
-    if x.device.type == "cpu":
-        return conv3d_bn_relu_reference(x, w, b, relu)
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_bn_relu: unsupported device {x.device}")
     n, d, h, wd, cin = x.shape
@@ -117,8 +115,86 @@ def conv3d_bn_relu(
     )
     if err != 0:
         raise RuntimeError(f"conv3d_bn_relu: CUDA launch failed with cudaError {err}")
+    return y
+
+
+def conv3d_bn_relu(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
+) -> torch.Tensor:
+    """y = [relu](conv3d_k3s1_same(x, w) + b), NDHWC in x's dtype.
+
+    x [N,D,H,W,Cin] float32 or bfloat16; w [3,3,3,Cin,Cout] in x's dtype
+    (BN folded in); b float32 [Cout]. A CUDA tensor runs the CUDA kernel and
+    adds one to ``conv3d_bn_relu.launches``; a CPU tensor runs
+    ``conv3d_bn_relu_reference``."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return conv3d_bn_relu_reference(x, w, b, relu)
+    y = _launch(x, w, b, relu)
     conv3d_bn_relu.launches += 1
     return y
 
 
 conv3d_bn_relu.launches = 0
+
+
+def _flip_transpose(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weights and zero bias that turn the forward conv into its input
+    gradient: k3 s1 SAME correlation is self-adjoint up to this relabelling."""
+    zero = torch.zeros(w.shape[3], dtype=torch.float32, device=w.device)
+    return w.flip((0, 1, 2)).transpose(3, 4).contiguous(), zero
+
+
+def conv3d_input_grad_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``conv3d_input_grad``, in f32, cast to g's dtype."""
+    return conv3d_bn_relu_reference(g, *_flip_transpose(w), relu=False)
+
+
+def conv3d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx [N,D,H,W,Cin] of y = conv3d_k3s1_same(x, w) for the cotangent g
+    [N,D,H,W,Cout], in g's dtype; w [3,3,3,Cin,Cout] in g's dtype.
+
+    The conv kernel on ``w.flip(0,1,2).transpose(3,4)`` with zero bias. A
+    CUDA tensor launches it and adds one to ``conv3d_input_grad.launches``
+    (not to ``conv3d_bn_relu``'s); a CPU tensor runs the plain version."""
+    w_t, zero = _flip_transpose(w)
+    _check(g, w_t, zero)
+    if g.device.type == "cpu":
+        return conv3d_bn_relu_reference(g, w_t, zero, relu=False)
+    dx = _launch(g, w_t, zero, relu=False)
+    conv3d_input_grad.launches += 1
+    return dx
+
+
+conv3d_input_grad.launches = 0
+
+
+class _Conv3dK3S1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        w = weight.to(x.dtype).contiguous()
+        ctx.save_for_backward(x, w)
+        return conv3d_bn_relu(x, w, bias.float().contiguous(), relu=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:  # not for the stem, whose input is data
+            dx = conv3d_input_grad(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_wgrad(x, g)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum(dim=(0, 1, 2, 3))
+        return dx, dw, db
+
+
+def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """k3 s1 SAME conv3d + bias with gradients for x, weight and bias.
+
+    x [N,D,H,W,Cin] float32 or bfloat16, contiguous (the compute dtype);
+    weight [3,3,3,Cin,Cout] and bias [Cout] float32 parameters. The conv
+    runs in x's dtype with f32 accumulation and returns x's dtype; the
+    weight and bias gradients are float32."""
+    return _Conv3dK3S1.apply(x, weight, bias)

@@ -1,0 +1,108 @@
+"""Weight gradient of the k3 s1 SAME Conv3d on NDHWC tensors.
+
+``conv3d_wgrad(x, g)`` gives dw[dz, dy, dx, ci, co] =
+sum_{n,d,h,w} x[n, d+dz-1, h+dy-1, w+dx-1, ci] * g[n, d, h, w, co] in f32,
+the conv's weight gradient for the cotangent ``g`` of its output. On a CUDA
+tensor it runs the hand-written kernel ``csrc/conv3d_wgrad.cu`` (which
+replaces the Pallas kernel ``ops/pallas_tlayout.wgrad_tapcols_tlayout``),
+adds one to ``conv3d_wgrad.launches`` and raises if the build or launch
+fails. On a CPU tensor it runs ``conv3d_wgrad_reference``, the plain
+PyTorch version, which is also the kernel's oracle in the tests and in
+``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_BK = 32  # voxels per reduction step of the kernel; split chunks are multiples of it
+_TARGET_BLOCKS = 528  # four blocks per SM of an H100: enough to fill the card
+_MIN_CHUNK = 2048  # voxels a split sums at least
+
+
+def conv3d_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version: for each of the 27 taps, the tap-shifted x (SAME zero
+    padding) contracted with g over all voxels. x [N,D,H,W,Cin],
+    g [N,D,H,W,Cout] -> [3,3,3,Cin,Cout], computed and returned in f32, or
+    in f64 for f64 inputs: an oracle whose own rounding is negligible next
+    to a kernel's f32 accumulation over millions of voxels."""
+    n, d, h, w, cin = x.shape
+    cout = g.shape[-1]
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xp = F.pad(x.to(dt), (0, 0, 1, 1, 1, 1, 1, 1))
+    g2 = g.to(dt).reshape(-1, cout)
+    taps = [
+        xp[:, dz : dz + d, dy : dy + h, dx : dx + w].reshape(-1, cin).T @ g2
+        for dz in range(3) for dy in range(3) for dx in range(3)
+    ]
+    return torch.stack(taps).reshape(3, 3, 3, cin, cout)
+
+
+def split_k(rows: int, cout: int, voxels: int):
+    """(chunk, splits): how many voxels each split of the reduction sums and
+    how many splits there are, so that output tiles x splits fill the card.
+    Depends on the shapes only, so a shape always sums in the same order."""
+    tiles = -(-rows // 128) * -(-cout // 64)
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), voxels // _MIN_CHUNK))
+    per_split = -(-voxels // splits)
+    chunk = -(-per_split // _BK) * _BK
+    return chunk, -(-voxels // chunk)
+
+
+def _check(x: torch.Tensor, g: torch.Tensor) -> None:
+    if x.dtype not in _DTYPES or g.dtype != x.dtype:
+        raise TypeError(f"conv3d_wgrad: x and g must both be float32 or bfloat16, got {x.dtype}, {g.dtype}")
+    if x.dim() != 5 or g.dim() != 5 or x.numel() == 0 or g.numel() == 0 or x.shape[:4] != g.shape[:4]:
+        raise ValueError(
+            f"conv3d_wgrad: x [N,D,H,W,Cin] and g [N,D,H,W,Cout] must share N,D,H,W, got "
+            f"{tuple(x.shape)}, {tuple(g.shape)}"
+        )
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("conv3d_wgrad: x and g must be contiguous")
+    if x.device != g.device:
+        raise ValueError(f"conv3d_wgrad: x and g must share a device, got {x.device}, {g.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3d_wgrad: unsupported device {x.device}")
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("conv3d_wgrad").conv3d_wgrad_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw f32 [3,3,3,Cin,Cout] of the k3 s1 SAME conv3d of x [N,D,H,W,Cin]
+    for the output cotangent g [N,D,H,W,Cout]; x and g in one dtype,
+    float32 or bfloat16."""
+    _check(x, g)
+    if x.device.type == "cpu":
+        return conv3d_wgrad_reference(x, g)
+    n, d, h, w, cin = x.shape
+    cout = g.shape[-1]
+    chunk, splits = split_k(27 * cin, cout, n * d * h * w)
+    dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
+    # the split partials, summed in split order by the kernel's second pass
+    part = torch.empty((splits, 27 * cin, cout), dtype=torch.float32, device=x.device) if splits > 1 else dw
+    err = _kernel()(
+        x.data_ptr(), g.data_ptr(), dw.data_ptr(), part.data_ptr(),
+        n, d, h, w, cin, cout, chunk, splits, int(x.dtype == torch.bfloat16),
+        x.device.index if x.device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"conv3d_wgrad: CUDA launch failed with cudaError {err}")
+    conv3d_wgrad.launches += 1
+    return dw
+
+
+conv3d_wgrad.launches = 0

@@ -9,9 +9,11 @@ grid (``patch_overlap`` 4,4,36 by default) -> argmax mask written as
     python -m general_medical_image_segmentation_cnn_framework_tpu_torch.predict \\
         config=unet config.ckpt=<port checkpoint .pt>
 
-The model runs on the CUDA card when there is one and on the CPU
-otherwise; on a card every eval ConvBlock is the hand-written kernel.
-Volumes go through one at a time.
+The model runs on the CUDA card unless ``config.platform=cpu``; without a
+card and without that it raises instead of falling back to the CPU. On the
+card every eval ConvBlock is the hand-written kernel. Volumes go through one
+at a time. The checkpoint may be a weights-only file or one written by
+``train``: predict reads its ``params``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from .checkpoint import load_checkpoint
-from .config import compose, log_ignored_keys
+from .config import compose, log_ignored_keys, resolve_device
 from .data.io import Volume, write_volume
 from .data.pipeline import get_subjects, load_subject
 from .data.transforms import ZNormalization
@@ -54,10 +56,10 @@ def predict(model=None, config=None, logger=None):
         raise ValueError("predict needs a config")
     if model is None:
         model = build_model(config)
+    device = resolve_device(config)
     if logger is None:
         logger = get_logger(config)
     log_ignored_keys(config, logger)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     logger.info(f"predicting on {device} ({torch.cuda.get_device_name(0) if device.type == 'cuda' else 'host CPU'})")
 
     state = load_checkpoint(config.ckpt)

@@ -1,6 +1,8 @@
-"""The port runs without JAX: imported with ``jax`` and ``flax`` blocked, it
-still builds UNet3D and runs a forward on the CPU; and ``chip_smoke.py``
-refuses to run where there is no CUDA card."""
+"""The port runs without JAX: imported with ``jax``, ``flax`` and the JAX
+package itself blocked, it still builds UNet3D and runs a forward and a
+train step on the CPU; no source of the port or ``chip_smoke.py`` imports
+any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
+card."""
 
 import subprocess
 import sys
@@ -11,11 +13,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "general_medical_image_segmentation_cnn_framework_tpu_torch"
+JAX_PACKAGE = "general_medical_image_segmentation_cnn_framework_tpu"
 
 _NO_JAX = f"""
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["{JAX_PACKAGE}"] = None
 import importlib, pkgutil
 import torch
 import {PORT}
@@ -30,7 +34,15 @@ with torch.inference_mode():
 assert y.shape == (1, 16, 16, 16, 2) and y.dtype == torch.float32 and torch.isfinite(y).all()
 mask = sliding_window_predict(model, torch.randn(20, 16, 18, 1), (16, 16, 16), (4, 4, 4), 2)
 assert mask.shape == (20, 16, 18) and mask.dtype == torch.int8
-loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in ("jax", "flax", "jaxlib")]
+from {PORT}.config import ConfigDict
+from {PORT}.train import make_loss_and_metric, make_optimizer, make_train_step
+cfg = ConfigDict(out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
+model.train()
+step = make_train_step(model, make_optimizer(cfg, model.parameters()), make_loss_and_metric(cfg))
+loss, dice = step(torch.randn(2, 16, 16, 16, 1), (torch.rand(2, 16, 16, 16, 1) > 0.5).float())
+assert torch.isfinite(loss) and 0 <= float(dice) <= 1
+blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
+loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded
 print("ok")
 """
@@ -45,11 +57,12 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    for path in (ROOT / PORT).rglob("*.py"):
+    for path in [*(ROOT / PORT).rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert words[1].split(".")[0] not in ("jax", "flax", "jaxlib"), f"{path}: {line}"
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "flax", "jaxlib", JAX_PACKAGE), f"{path}: {line}"
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -5,7 +5,10 @@ import csv
 import math
 
 import numpy as np
+import pytest
 import torch
+
+pytest.importorskip("flax")  # the JAX package is this file's oracle: without it the file skips
 
 from general_medical_image_segmentation_cnn_framework_tpu import predict as jax_predict
 from general_medical_image_segmentation_cnn_framework_tpu.checkpoint import save_checkpoint
@@ -75,7 +78,7 @@ def test_predict_cli_matches_jax(synthetic_dataset, tmp_path, monkeypatch):
 
     # the CLI builds the f=32 UNet3D of from_config; this test runs the f=4 one
     monkeypatch.setattr(port_predict, "build_model", lambda config: UNet3D(1, 2, 4))
-    port_predict.main(overrides(tmp_path / "port", port_ckpt))
+    port_predict.main(overrides(tmp_path / "port", port_ckpt) + ["config.platform=cpu"])
     (port_dir,) = (tmp_path / "port").glob("predict-*/*")
 
     jax_masks = sorted((tmp_path / "jax").glob("predict-*/*/pred_file/pred-*.nii.gz"))
