@@ -23,7 +23,8 @@ each of which stops the run with a non-zero exit when it fails:
 4. The model on the card (kernel) vs the same module on the CPU (plain),
    f32, one batch of two 64^3 tiles: logits and mask agreement.
 5. The fused BCE + dice kernels (sums, grads) vs their plain versions at the
-   train step's logits, 16 x 64^3 x 2 f32, and at a ragged voxel count:
+   logits of both train steps, UNet3D's 16 x 64^3 x 2 and UNet2D's
+   16 x 1 x 128^2 x 2 f32 ([7] and [10]), and at a ragged voxel count:
    loss sum within 1e-5 relative, the three counts exact, the gradient
    within 1e-6 * s at the train step's scale s = 1/(2V) and at s = 1 (the
    gradient is (sigmoid(l) - t) * s, so |gradient| <= s and the limit bites
@@ -51,12 +52,37 @@ each of which stops the run with a non-zero exit when it fails:
 8. One train step on the card vs the same step on the CPU, f32, UNet3D at
    init_features=8 with seeded weights, batch 4 x 32^3: loss and every
    parameter's gradient.
+9. The 2-D conv kernels (the KD = 1 instances: ``conv2d_bn_relu``,
+   ``conv2d_input_grad``, ``conv2d_wgrad``) vs their plain versions at each
+   of UNet2D's 18 conv shapes at batch 16 x 128^2, bf16 and f32, with the
+   limits of [2] and [6]; times of kernel, plain version and cuDNN
+   (``conv2d``, ``conv2d_input``, ``conv2d_weight``), and the bound.
+10. The port's train entry point at ``config=unet2d`` defaults (UNet2D at
+   its full width 64/128/256/512/512, patch 1,128,128, batch 16, bf16,
+   Adam, data_backend=device) on two fresh volumes like [3]'s, 3 steps per
+   epoch for 2 epochs: every loss finite, every step launched 18 forward,
+   17 input-gradient and 18 weight-gradient 2-D conv kernels, one sums and
+   one grads kernel, and no 3-D conv kernel. Warm steps of
+   ``train.make_train_step`` (through ``models.make_forward``'s slice
+   adapter) timed as in [7], with peak memory and a profile; then
+   ``predict.main`` from the trained checkpoint (masks, metrics.csv, 18
+   ``conv2d_bn_relu`` launches per forward batch) and the sliding window on
+   the card alone, in s per volume.
+11. UNet2D f32, batch 4 x 32^2, card vs CPU (TF32 off): eval logits within
+   1e-3 of the logit scale and masks agreeing on 99.9% of the pixels; one
+   train step's loss within 1e-5 relative, the gradients within 1e-2 in
+   relative L2 norm (ReLU masks flip where a pre-activation is within f32
+   noise of 0, and train-mode BatchNorm spreads a flip over its channel:
+   tests/test_torch_port_unet2d_f64.py), the head's within 1e-4 of its
+   largest entry, the conv biases' (true gradient 0) within 1e-5.
 
-Phases [3] and [7] are the main paths: every launch counter is set to 0
+Phases [3], [7] and [10] are the main paths: every launch counter is set to 0
 just before each and read just after; a kernel's ``launches`` in the
-kernel line is the sum over both. The kernel line's times are sums over the
+kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
-the 17 input gradients, conv3d_wgrad the 18 weight gradients (bf16). Bounds (``bound_ms``) are the larger of
+the 17 input gradients, conv3d_wgrad the 18 weight gradients (bf16), at
+UNet3D's shapes; conv2d_* the same at UNet2D's; the loss kernels at UNet3D's
+logits, with the largest error of the three shapes of [5]. Bounds (``bound_ms``) are the larger of
 the bytes the work must move (each input read once, each output written
 once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (bf16 tensor cores)
 or 67 TFLOP/s (f32 on CUDA cores), the H100 SXM data-sheet peaks.
@@ -90,6 +116,7 @@ VOLUME = (256, 256, 128)
 N_VOLUMES = 2
 OVERLAP = (4, 4, 36)
 LEVELS = (0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0)  # pooling depth of ConvBlock_i
+SLICE = 128  # UNet2D's patch is 1 x SLICE x SLICE (config=unet2d)
 F32_TOL, BF16_TOL, WGRAD_TOL = 1e-4, 1e-2, 1e-4
 TRAIN_EPOCHS, SAMPLES_PER_VOLUME = 2, 24  # 2 volumes x 24 patches = 3 batches of 16 per epoch
 HBM_BYTES_PER_S = 3.35e12
@@ -122,11 +149,12 @@ def bound_ms(flops, nbytes, dtype_name):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def conv_work(voxels, cin, cout, itemsize):
-    """FLOPs and minimal bytes of one k3 s1 conv (forward, input gradient
-    with cin/cout swapped, or weight gradient, which writes f32 weights)."""
-    flops = 2.0 * voxels * 27 * cin * cout
-    return flops, voxels * (cin + cout) * itemsize + 27 * cin * cout * max(itemsize, 4)
+def conv_work(voxels, cin, cout, itemsize, taps=27):
+    """FLOPs and minimal bytes of one k3 s1 conv with ``taps`` taps (27 in
+    3-D, 9 in 2-D): forward, input gradient with cin/cout swapped, or weight
+    gradient, which writes f32 weights."""
+    flops = 2.0 * voxels * taps * cin * cout
+    return flops, voxels * (cin + cout) * itemsize + taps * cin * cout * max(itemsize, 4)
 
 
 def random_state_dict(torch, model, seed):
@@ -140,7 +168,7 @@ def random_state_dict(torch, model, seed):
             v = rng.uniform(0.5, 2.0, shape)
         elif name.endswith("bn.weight"):
             v = rng.uniform(0.5, 1.5, shape)
-        elif name == "head.weight":  # nn.Linear [Cout, Cin]
+        elif name == "head.weight" and len(shape) == 2:  # UNet3D's nn.Linear head [Cout, Cin]
             v = rng.normal(0.0, math.sqrt(1.0 / shape[1]), shape)
         elif name.endswith("weight"):  # conv and up-conv kernels [..., Cin, Cout]
             v = rng.normal(0.0, math.sqrt(2.0 / np.prod(shape[:-1])), shape)
@@ -171,10 +199,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a card")
     sys.path.insert(0, str(ROOT))
-    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, models, predict, train
     from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
     from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, make_dataset, pipeline, transforms
     from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.two_d.unet2d import UNet2D
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import _build as build
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_wgrad as wgrad_op
@@ -185,7 +214,10 @@ def main() -> None:
     dgrad, dgrad_plain = conv.conv3d_input_grad, conv.conv3d_input_grad_reference
     wgrad, wgrad_plain = wgrad_op.conv3d_wgrad, wgrad_op.conv3d_wgrad_reference
     sums, grads = loss_op.bce_dice_sums, loss_op.bce_dice_grads
-    counters = (kernel, dgrad, wgrad, sums, grads)
+    kernel2d, plain2d = conv.conv2d_bn_relu, conv.conv2d_bn_relu_reference
+    dgrad2d, dgrad2d_plain = conv.conv2d_input_grad, conv.conv2d_input_grad_reference
+    wgrad2d, wgrad2d_plain = wgrad_op.conv2d_wgrad, wgrad_op.conv2d_wgrad_reference
+    counters = (kernel, dgrad, wgrad, sums, grads, kernel2d, dgrad2d, wgrad2d)
     loaded = [m for m in ("jax", "flax", JAX_SRC) if m in sys.modules]
     check(not loaded, f"the port imported {loaded}")
 
@@ -358,8 +390,9 @@ def main() -> None:
         del m32
 
         # -- 5. fused BCE + dice kernels vs plain -----------------------------------
-        loss_rows = {}
-        for shape in ((BATCH, PATCH, PATCH, PATCH), (3, 17, 19, 23)):
+        loss_rows, loss_errs = {}, {"sums": 0.0, "grads": 0.0}
+        # UNet3D's logits, UNet2D's ([10] gives the kernels [BATCH, 1, SLICE, SLICE, 2]) and a ragged count
+        for shape in ((BATCH, PATCH, PATCH, PATCH), (BATCH, 1, SLICE, SLICE), (3, 17, 19, 23)):
             voxels = math.prod(shape)
             logits = 3.0 * randn(*shape, 2)
             gt = (torch.rand(*shape, 1, device=dev, generator=gen) > 0.7).float()
@@ -389,7 +422,8 @@ def main() -> None:
             }
             target = torch.cat([1.0 - gt, gt], dim=-1)
             bce_ms = cuda_ms(torch, lambda: torch.nn.functional.binary_cross_entropy_with_logits(logits, target))
-            if shape[0] == BATCH:
+            loss_errs = {"sums": max(loss_errs["sums"], loss_err), "grads": max(loss_errs["grads"], grad_err)}
+            if shape == (BATCH, PATCH, PATCH, PATCH):  # the kernel line times the 3-D shape
                 loss_rows = row
             print(f"[5] {shape} x 2 f32 logits: sums err {loss_err:.3g} kernel {row['sums'][0]:.4f} ms "
                   f"plain {row['sums'][1]:.4f} ms bound {row['sums'][2]:.4f} ms | grads err {grad_errs[0]:.3g} "
@@ -481,7 +515,8 @@ def main() -> None:
         train_launches = read_counters()
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         want_launches = {"conv3d_bn_relu": 18 * steps, "conv3d_input_grad": 17 * steps,
-                         "conv3d_wgrad": 18 * steps, "bce_dice_sums": steps, "bce_dice_grads": steps}
+                         "conv3d_wgrad": 18 * steps, "bce_dice_sums": steps, "bce_dice_grads": steps,
+                         "conv2d_bn_relu": 0, "conv2d_input_grad": 0, "conv2d_wgrad": 0}
         check(train_launches == want_launches, f"train launches {train_launches} != {want_launches}")
         (run,) = (work / "train_runs").glob("train-*/*")
         losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
@@ -602,6 +637,274 @@ def main() -> None:
     print(f"[8] UNet3D f=8 train step f32, card vs CPU: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, worst gradient "
           f"error {worst:.3g} of the tensor's largest, conv biases (true gradient 0) {bias_worst:.3g}", flush=True)
 
+    # -- 9. the 2-D conv kernels (KD = 1) at the 18 UNet2D conv shapes ----------
+    widths2d = [tuple(block.conv.weight.shape[2:]) for block in UNet2D(1, 2).blocks]
+    t2d = {dt: {k: [0.0] * 4 for k in ("fwd", "dgrad", "wgrad")} for dt in ("bfloat16", "float32")}
+    err2d = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    work2d = {k: [0.0, 0.0] for k in ("fwd", "dgrad", "wgrad")}  # bf16 FLOPs and bytes, summed
+    f_conv2d_input, f_conv2d_weight = torch.nn.grad.conv2d_input, torch.nn.grad.conv2d_weight
+    for i, (cin, cout) in enumerate(widths2d):
+        s = SLICE >> LEVELS[i]
+        x, g = randn(BATCH, s, s, cin), randn(BATCH, s, s, cout)
+        w, b = conv.fold_batchnorm(
+            randn(3, 3, cin, cout) * (9 * cin) ** -0.5, 0.1 * randn(cout),
+            0.5 + torch.rand(cout, device=dev, generator=gen), 0.1 * randn(cout),
+            0.1 * randn(cout), 0.5 + 1.5 * torch.rand(cout, device=dev, generator=gen),
+        )
+        line = f"[9] ConvBlock_{i:<2d} {cin:>4d}->{cout:<3d} {BATCH}x{s}^2"
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            name = str(dtype)[6:]
+            xd, gd, wd = x.to(dtype), g.to(dtype), w.to(dtype)
+            xc, gc, wc = xd.permute(0, 3, 1, 2), gd.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1).contiguous()
+            flops, nbytes = conv_work(BATCH * s * s, cin, cout, xd.element_size(), taps=9)
+            b_ms = bound_ms(flops, nbytes, name)[0]
+            y = kernel2d(xd, wd, b)
+            torch.cuda.synchronize()
+            want = plain2d(xd.float(), wd.float(), b)
+            err, lim = (y.float() - want).abs().max().item(), tol * max(1.0, want.abs().max().item())
+            check(y.dtype == dtype and y.shape == want.shape, f"conv2d ConvBlock_{i} {name}: dtype/shape")
+            check(err <= lim, f"conv2d ConvBlock_{i} {name}: error {err} > {lim}")
+            del y, want
+            t = (cuda_ms(torch, lambda: kernel2d(xd, wd, b)), cuda_ms(torch, lambda: plain2d(xd, wd, b)),
+                 cuda_ms(torch, lambda: torch.relu(torch.nn.functional.conv2d(xc, wc, b.to(dtype), padding=1))), b_ms)
+            parts = [("fwd", err, lim, t)]
+            if i > 0:  # the stem's input is data: its input gradient is never taken
+                dx = dgrad2d(gd, wd)
+                torch.cuda.synchronize()
+                want = f_conv2d_input((BATCH, cin, s, s), wd.float().permute(3, 2, 0, 1), gd.float().permute(0, 3, 1, 2),
+                                      padding=1).permute(0, 2, 3, 1)
+                err, lim = (dx.float() - want).abs().max().item(), tol * max(1.0, want.abs().max().item())
+                check(dx.dtype == dtype and dx.shape == want.shape, f"dgrad2d ConvBlock_{i} {name}: dtype/shape")
+                check(err <= lim, f"dgrad2d ConvBlock_{i} {name}: error {err} > {lim}")
+                del dx, want
+                t = (cuda_ms(torch, lambda: dgrad2d(gd, wd)), cuda_ms(torch, lambda: dgrad2d_plain(gd, wd)),
+                     cuda_ms(torch, lambda: f_conv2d_input((BATCH, cin, s, s), wc, gc, padding=1)), b_ms)
+                parts.append(("dgrad", err, lim, t))
+            dw = wgrad2d(xd, gd)
+            torch.cuda.synchronize()
+            want = wgrad2d_plain(xd.double(), gd.double())  # f64: exact on the same rounded inputs
+            err, lim = (dw.double() - want).abs().max().item(), WGRAD_TOL * max(1.0, want.abs().max().item())
+            check(dw.dtype == torch.float32 and dw.shape == want.shape, f"wgrad2d ConvBlock_{i} {name}: dtype/shape")
+            check(err <= lim, f"wgrad2d ConvBlock_{i} {name}: error {err} > {lim}")
+            del dw, want
+            t = (cuda_ms(torch, lambda: wgrad2d(xd, gd)), cuda_ms(torch, lambda: wgrad2d_plain(xd, gd)),
+                 cuda_ms(torch, lambda: f_conv2d_weight(xc, (cout, cin, 3, 3), gc, padding=1)), b_ms)
+            parts.append(("wgrad", err, lim, t))
+            for key, e, lim, t in parts:
+                for j, v in enumerate(t):
+                    t2d[name][key][j] += v
+                if dtype == torch.bfloat16:
+                    err2d[key] = max(err2d[key], e)
+                    work2d[key][0] += flops
+                    work2d[key][1] += nbytes
+                line += (f" | {name} {key} err {e:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} "
+                         f"cudnn {t[2]:.3f} bound {t[3]:.4f}")
+            del xd, gd, wd, xc, gc, wc
+        print(line + " (ms)", flush=True)
+        del x, g, w, b
+    for name, parts in t2d.items():
+        print(f"[9] sums per UNet2D train step, {name}: "
+              + ", ".join(f"{k} ({17 if k == 'dgrad' else 18}) kernel {v[0]:.3f} ms plain {v[1]:.3f} ms "
+                          f"cudnn {v[2]:.3f} ms bound {v[3]:.4f} ms" for k, v in parts.items())
+              + f"; all conv kernels {sum(v[0] for v in parts.values()):.3f} ms", flush=True)
+
+    # -- 10. train and predict UNet2D through the entry points ---------------
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    try:
+        write_volumes(work / "data", io)
+        steps = TRAIN_EPOCHS * (N_VOLUMES * SAMPLES_PER_VOLUME // BATCH)
+        patch2d = f"1, {SLICE}, {SLICE}"
+        train_argv = [
+            "config=unet2d",
+            f"config.data_path={work / 'data' / 'source'}",
+            f"config.gt_path={work / 'data' / 'label'}",
+            f"config.output_dir={work / 'train_runs'}",
+            f"config.batch_size={BATCH}",
+            f"config.samples_per_volume={SAMPLES_PER_VOLUME}",
+            f"config.epochs={TRAIN_EPOCHS}",
+            f"config.epochs_per_checkpoint={TRAIN_EPOCHS}",
+        ]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        t0 = time.perf_counter()
+        out = train.main(train_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        want_launches = {"conv3d_bn_relu": 0, "conv3d_input_grad": 0, "conv3d_wgrad": 0,
+                         "bce_dice_sums": steps, "bce_dice_grads": steps, "conv2d_bn_relu": 18 * steps,
+                         "conv2d_input_grad": 17 * steps, "conv2d_wgrad": 18 * steps}
+        check(train_launches == want_launches, f"unet2d train launches {train_launches} != {want_launches}")
+        check(isinstance(out["model"], UNet2D), f"config=unet2d trained a {type(out['model']).__name__}")
+        n_params = sum(p.numel() for p in out["model"].parameters())
+        (run,) = (work / "train_runs").glob("train-*/*")
+        losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+                  if line.startswith("Loss: ")]
+        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"unet2d train losses {losses}")
+        latest = checkpoint.load_checkpoint(run / "latest_checkpoint.ckpt")
+        check(latest["epoch"] == TRAIN_EPOCHS and latest["opt_state"]["state"], "unet2d latest_checkpoint.ckpt")
+        check((run / f"checkpoint_{TRAIN_EPOCHS:04d}.ckpt").exists(), "unet2d periodic checkpoint")
+        print(f"[10] train.main config=unet2d ({n_params:,} parameters, patch {patch2d}, batch {BATCH}, bf16): "
+              f"{steps} steps in {wall:.1f} s (data included), launches {train_launches}, losses "
+              f"{[round(v, 5) for v in losses]}, dice of the last epoch {out['dice']:.4f}, peak memory "
+              f"{peak_gb:.2f} GiB", flush=True)
+
+        # warm steps through the entry point's train step and slice adapter, as in [7]
+        cfg = compose(train_argv, job_name="train", make_run_dir=False)
+        net, opt = out["model"], out["optimizer"]
+        dataset = make_dataset(cfg, is_train=True, device=dev)
+        reps = 5
+        step_batches = []
+        while len(step_batches) < reps + 2:
+            step_batches.extend(dataset)
+        check(tuple(step_batches[0][0].shape) == (BATCH, 1, SLICE, SLICE, 1), f"batch {step_batches[0][0].shape}")
+        marks = []
+
+        def mark(*_):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+        loss_fn = train.make_loss_and_metric(cfg)
+
+        def marked_loss(pred, gt):
+            result = loss_fn(pred, gt)
+            mark()
+            return result
+
+        hooks = [net.register_forward_pre_hook(mark), net.register_forward_hook(mark),
+                 opt.register_step_pre_hook(mark), opt.register_step_post_hook(mark)]
+        step = train.make_train_step(models.make_forward(cfg, net), opt, marked_loss)
+        split = np.zeros(4)
+        for rep, (xb, yb) in enumerate(step_batches[:reps + 2]):
+            marks.clear()
+            step(xb, yb)
+            check(len(marks) == 5, f"unet2d train step hooks fired {len(marks)} times, not 5")
+            marks[-1].synchronize()
+            if rep >= 2:  # two warm-up steps
+                split += [marks[k].elapsed_time(marks[k + 1]) for k in range(4)]
+        for h in hooks:
+            h.remove()
+        split /= reps
+        step_ms = split.sum()
+        print(f"[10] warm train step (UNet2D bf16, {BATCH}x{SLICE}^2): {step_ms:.3f} ms, "
+              f"{1e3 * BATCH / step_ms:.1f} samples/s; forward {split[0]:.3f} ms, loss {split[1]:.3f} ms, "
+              f"backward {split[2]:.3f} ms, optimizer {split[3]:.3f} ms", flush=True)
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for xb, yb in step_batches[:2]:
+                step(xb, yb)
+            torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0)
+        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+        if not on_card:
+            print("[10] profile: the profiler recorded no device time (not measured)", flush=True)
+        else:
+            print(f"[10] profile of 2 warm steps: the card busy {busy_ms:.1f} of {window_ms:.1f} ms "
+                  f"({100 * busy_ms / window_ms:.1f}%); per step {sum(e.count for e in on_card) / 2:.0f} kernel "
+                  f"launches and {busy_ms / 2:.3f} ms of device time against the {step_ms:.3f} ms step timed "
+                  f"without the profiler ({50 * busy_ms / step_ms:.1f}%); the 15 largest kernels:", flush=True)
+            for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]:
+                print(f"[10]   {e.self_device_time_total / 2e3:8.3f} ms  x{e.count // 2:<4d} {e.key[:100]}", flush=True)
+        del opt, out, dataset, step_batches, xb, yb, step
+
+        one = work / "one"
+        for split_dir in ("source", "label"):
+            (one / split_dir).mkdir(parents=True)
+            os.symlink(work / "data" / split_dir / "vol-00.nii.gz", one / split_dir / "vol-00.nii.gz")
+        n_tiles = len(pipeline.grid_locations(VOLUME, (1, SLICE, SLICE), (0, 4, 36)))
+        zero_counters()
+        t0 = time.perf_counter()
+        predict.main([
+            "config=unet2d", f"config.pred_data_path={one / 'source'}", f"config.pred_gt_path={one / 'label'}",
+            f"config.output_dir={work / 'runs'}", f"config.ckpt={run / 'latest_checkpoint.ckpt'}",
+            f"config.batch_size={BATCH}",
+        ])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        predict_launches = read_counters()
+        batches = -(-n_tiles // BATCH)
+        check(predict_launches["conv2d_bn_relu"] == 18 * batches and predict_launches["conv3d_bn_relu"] == 0,
+              f"unet2d predict launches {predict_launches} != 18 x {batches} forward batches")
+        (pred_run,) = (work / "runs").glob("predict-*/*")
+        rows = (pred_run / "metrics.csv").read_text().splitlines()
+        check(rows[0] == "precision,recall,jaccard,dice,hs95" and len(rows) == 3, f"unet2d metrics.csv: {rows}")
+        check(all(0.0 <= float(v) <= 1.0 for v in rows[1].split(",")[:4]), f"unet2d metrics row: {rows[1]}")
+        (mask_file,) = (pred_run / "pred_file").glob("pred-*.nii.gz")
+        mask = io.read_volume(mask_file).data
+        check(mask.shape == (1, *VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0}, f"unet2d mask {mask.shape}")
+        print(f"[10] predict.main config=unet2d from the trained checkpoint: {n_tiles} slices of 1x{SLICE}x{SLICE}, "
+              f"{batches} forward batches, launches {predict_launches}, {wall:.3f} s end to end; metrics {rows[1]}",
+              flush=True)
+
+        # the device part alone: the sliding window over the uploaded volume, warm
+        net.eval()
+        subject = pipeline.load_subject((one / "source" / "vol-00.nii.gz", one / "label" / "vol-00.nii.gz"))
+        vol = sw.prepare_volume(transforms.ZNormalization().normalize_array(subject.source.data), dev, net.dtype)
+        fwd2d = models.make_forward(cfg, net)
+        sw.sliding_window_predict(fwd2d, vol, (1, SLICE, SLICE), (0, 4, 36), BATCH)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sw.sliding_window_predict(fwd2d, vol, (1, SLICE, SLICE), (0, 4, 36), BATCH)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"[10] UNet2D sliding window on the card, one volume: {', '.join(f'{t:.4f}' for t in times)} s",
+              flush=True)
+        del net, vol, fwd2d
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- 11. UNet2D on the card vs the CPU, f32: eval logits and a train step --
+    cfg2d = ConfigDict(network="unet2d", out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
+    rng = np.random.default_rng(SEED + 11)
+    xs = torch.from_numpy(rng.normal(size=(4, 1, 32, 32, 1)).astype(np.float32))
+    ys = torch.from_numpy((rng.uniform(size=(4, 1, 32, 32, 1)) > 0.7).astype(np.float32))
+    sd = random_state_dict(torch, UNet2D(1, 2), SEED + 11)
+    results = []
+    for device in (torch.device("cpu"), dev):
+        net = UNet2D(1, 2)
+        net.load_state_dict(sd)
+        net.to(device).eval()
+        with torch.inference_mode():
+            logits = net(xs[:, 0].to(device)).cpu()
+        net.train()
+        loss, _ = train.make_loss_and_metric(cfg2d)(models.make_forward(cfg2d, net)(xs.to(device)), ys.to(device))
+        loss.backward()
+        results.append((logits, loss.item(), {n: p.grad.detach().double().cpu() for n, p in net.named_parameters()}))
+    (cpu_logits, cpu_loss, cpu_grads), (gpu_logits, gpu_loss, gpu_grads) = results
+    scale = max(1.0, cpu_logits.abs().max().item())
+    err = (gpu_logits - cpu_logits).abs().max().item()
+    agree = (gpu_logits.argmax(-1) == cpu_logits.argmax(-1)).float().mean().item()
+    check(gpu_logits.shape == (4, 32, 32, 2) and torch.isfinite(gpu_logits).all().item(), "unet2d logits")
+    check(err <= 1e-3 * scale, f"UNet2D eval card vs CPU: max|diff| {err} > {1e-3 * scale}")
+    check(agree >= 0.999, f"UNet2D eval card vs CPU: mask agreement {agree}")
+    check(abs(gpu_loss - cpu_loss) <= 1e-5 * cpu_loss, f"UNet2D train step loss card {gpu_loss} vs CPU {cpu_loss}")
+    # the gradient is piecewise (ReLU masks flip where a pre-activation is within f32 noise of 0, and
+    # train-mode BatchNorm spreads a flip over its channel): held in relative L2 norm, as in
+    # tests/test_torch_port_unet2d.py; the head, above every ReLU, to 1e-4 of its largest entry
+    worst = head_worst = bias_worst = 0.0
+    for name, want in cpu_grads.items():
+        got = gpu_grads[name]
+        if name.endswith("conv.bias"):  # true gradient 0: BatchNorm removes the shift
+            bias_worst = max(bias_worst, (got - want).abs().max().item())
+        elif name.startswith("head"):
+            head_worst = max(head_worst, (got - want).abs().max().item() / want.abs().max().item())
+        else:
+            worst = max(worst, ((got - want).norm() / want.norm()).item())
+    check(worst <= 1e-2, f"UNet2D train step gradients card vs CPU: worst relative L2 error {worst}")
+    check(head_worst <= 1e-4, f"UNet2D train step head gradient card vs CPU: {head_worst}")
+    check(bias_worst <= 1e-5, f"UNet2D train step conv-bias gradients card vs CPU: {bias_worst}")
+    print(f"[11] UNet2D f32 card vs CPU: eval max|diff| {err:.3g} (logit scale {scale:.3g}), mask agreement "
+          f"{agree:.6f}; train step loss {gpu_loss:.6f} vs {cpu_loss:.6f}, worst gradient error {worst:.3g} "
+          f"(relative L2), head {head_worst:.3g}, conv biases (true gradient 0) {bias_worst:.3g}", flush=True)
+
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -622,10 +925,20 @@ def main() -> None:
               wg[0], wg[1], wg[3], bound_ms(wgrad_ops, wgrad_bytes, "bfloat16")[1], wg[2], wgrad_err),
         entry("bce_dice_sums", "fused_bce_dice.cu", f"{JAX_SRC}/ops/fused.py:81",
               loss_rows["sums"][0], loss_rows["sums"][1], loss_rows["sums"][2], loss_rows["sums"][3], None,
-              loss_rows["sums"][4]),
+              loss_errs["sums"]),
         entry("bce_dice_grads", "fused_bce_dice.cu", f"{JAX_SRC}/ops/fused.py:125",
               loss_rows["grads"][0], loss_rows["grads"][1], loss_rows["grads"][2], loss_rows["grads"][3], None,
-              loss_rows["grads"][4]),
+              loss_errs["grads"]),
+        *(entry(name, src, replaces, *t2d["bfloat16"][key][:2], t2d["bfloat16"][key][3],
+                bound_ms(*work2d[key], "bfloat16")[1], t2d["bfloat16"][key][2], err2d[key])
+          for name, src, key, replaces in (
+              ("conv2d_bn_relu", "conv3d_bn_relu.cu", "fwd", f"{JAX_SRC}/ops/pallas_tlayout.py:562"),
+              ("conv2d_input_grad", "conv3d_bn_relu.cu", "dgrad",
+               f"{JAX_SRC}/ops/pallas_tlayout.py:562 (the input gradient of its custom VJP at :613)"),
+              ("conv2d_wgrad", "conv3d_wgrad.cu", "wgrad",
+               f"{JAX_SRC}/ops/pallas_tlayout.py:806 (its KD = 1 instance; the JAX package's 2-D weight gradient "
+               f"is XLA's, _wgrad2d_tlayout at :591)"),
+          )),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

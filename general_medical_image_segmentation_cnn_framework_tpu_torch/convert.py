@@ -1,9 +1,13 @@
-"""Carry UNet3D weights from the JAX package to the port.
+"""Carry UNet3D and UNet2D weights from the JAX package to the port.
 
-``unet3d_state_dict_from_flax`` maps the Flax variable tree (params and
-batch_stats) onto the port's ``state_dict``. The port keeps the Flax
-layouts (conv kernels [kd, kh, kw, Cin, Cout]), so only names change, plus
-the 1x1x1 head, which becomes an ``nn.Linear``. ``adam_state_from_optax``
+``unet3d_state_dict_from_flax`` and ``unet2d_state_dict_from_flax`` map the
+Flax variable tree (params and batch_stats) onto the port's
+``state_dict``. The port keeps the Flax layouts (conv kernels
+[kd, kh, kw, Cin, Cout], or [kh, kw, Cin, Cout] in 2-D), so only names
+change, plus UNet3D's 1x1x1 head, which becomes an ``nn.Linear``. The 2-D
+tree nests one scope deeper: a 2-D ``TorchConv`` keeps its kernel and bias
+in a ``Conv_0`` child, which is how ``state_dict_from_flax`` tells the
+two apart. ``adam_state_from_optax``
 turns the JAX package's Adam state (``inject_hyperparams(optax.adam)``)
 into a ``torch.optim.Adam`` state dict: mu -> exp_avg, nu -> exp_avg_sq,
 count -> step. The two updates agree: torch's
@@ -22,7 +26,7 @@ checkpoint from it, with the Adam state when the file has one, so that
 
 from __future__ import annotations
 
-import sys
+import argparse
 from pathlib import Path
 from typing import Dict, Mapping, Optional, Union
 
@@ -45,8 +49,10 @@ def _t(a) -> torch.Tensor:
 
 def convblock_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """One Flax ``ConvBlock`` scope -> the port ConvBlock's state_dict; its
-    parameters alone when ``batch_stats`` is None."""
+    parameters alone when ``batch_stats`` is None. The conv's kernel and
+    bias sit in ``TorchConv_0`` (3-D) or in its ``Conv_0`` child (2-D)."""
     conv, bn = params["TorchConv_0"], params["BatchNorm_0"]
+    conv = conv.get("Conv_0", conv)
     sd = {
         "conv.weight": _t(conv["kernel"]),
         "conv.bias": _t(conv["bias"]),
@@ -81,12 +87,51 @@ def unet3d_state_dict_from_flax(
     return sd
 
 
+def unet2d_state_dict_from_flax(
+    params: Mapping, batch_stats: Optional[Mapping] = None
+) -> Dict[str, torch.Tensor]:
+    """Flax UNet2D ``params``/``batch_stats`` (numpy leaves) -> port
+    state_dict: ``ConvBlock_i`` -> ``blocks.i``, the 1x1 head
+    ``TorchConv_0/Conv_0`` -> ``head`` (kernel [1, 1, 64, classes] as it
+    is). Without ``batch_stats``: the parameters alone, for any tree shaped
+    like ``params``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(N_BLOCKS):
+        stats = None if batch_stats is None else batch_stats[f"ConvBlock_{i}"]
+        block = convblock_state_dict_from_flax(params[f"ConvBlock_{i}"], stats)
+        sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+    head = params["TorchConv_0"]["Conv_0"]
+    sd["head.weight"] = _t(head["kernel"])
+    sd["head.bias"] = _t(head["bias"])
+    return sd
+
+
+def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """A Flax UNet3D or UNet2D tree -> the port's state_dict; the tree says
+    which: a 2-D ``TorchConv`` keeps its kernel in a ``Conv_0`` child."""
+    if "Conv_0" in params["ConvBlock_0"]["TorchConv_0"]:
+        return unet2d_state_dict_from_flax(params, batch_stats)
+    return unet3d_state_dict_from_flax(params, batch_stats)
+
+
+def _model_of(sd: Mapping[str, torch.Tensor]) -> torch.nn.Module:
+    """A port model with the shapes of ``sd`` (for Adam's parameter order)."""
+    stem = sd["blocks.0.conv.weight"]
+    if stem.ndim == 4:  # [3, 3, Cin, Cout]: UNet2D
+        from .models.two_d.unet2d import UNet2D
+
+        return UNet2D(stem.shape[2], sd["head.weight"].shape[-1])
+    from .models.three_d.unet3d import UNet3D
+
+    return UNet3D(stem.shape[3], sd["head.weight"].shape[0], stem.shape[4])
+
+
 def adam_state_from_optax(opt_state: Mapping, model: torch.nn.Module) -> Dict:
     """The JAX package's ``inject_hyperparams(optax.adam)`` state (as
     ``flax.serialization.to_state_dict`` stores it) -> the state dict of a
     ``torch.optim.Adam`` over ``model.parameters()``."""
     inner, hyper = opt_state["inner_state"]["0"], opt_state["hyperparams"]
-    mu, nu = unet3d_state_dict_from_flax(inner["mu"]), unet3d_state_dict_from_flax(inner["nu"])
+    mu, nu = state_dict_from_flax(inner["mu"]), state_dict_from_flax(inner["nu"])
     names = [name for name, _ in model.named_parameters()]
     template = torch.optim.Adam(model.parameters()).state_dict()
     step = float(np.asarray(inner["count"]))
@@ -139,25 +184,26 @@ def _has_chunked(tree) -> bool:
 
 
 def convert_checkpoint(src: Union[str, Path], dst: Union[str, Path]) -> None:
-    """JAX UNet3D ``.ckpt`` -> the port's checkpoint at ``dst``, with the Adam
-    state when ``src`` has one (else weights only)."""
-    from .models.three_d.unet3d import UNet3D
-
+    """JAX UNet3D or UNet2D ``.ckpt`` -> the port's checkpoint at ``dst``,
+    with the Adam state when ``src`` has one (else weights only)."""
     state = read_flax_msgpack(src)
-    sd = unet3d_state_dict_from_flax(state["params"], state["batch_stats"])
+    sd = state_dict_from_flax(state["params"], state["batch_stats"])
     opt_state = optimizer = None
     if state.get("opt_state"):
-        stem, head = sd["blocks.0.conv.weight"], sd["head.weight"]
-        model = UNet3D(stem.shape[3], head.shape[0], stem.shape[4])
+        model = _model_of(sd)
         opt_state, optimizer = adam_state_from_optax(state["opt_state"], model), "adam"
     save_checkpoint(dst, sd, int(state.get("epoch", 0)), opt_state, optimizer)
 
 
 def main(argv: Optional[list] = None) -> None:
-    args = sys.argv[1:] if argv is None else argv
-    if len(args) != 2:
-        raise SystemExit("usage: python -m general_medical_image_segmentation_cnn_framework_tpu_torch.convert SRC.ckpt DST.pt")
-    convert_checkpoint(args[0], args[1])
+    parser = argparse.ArgumentParser(
+        prog="python -m general_medical_image_segmentation_cnn_framework_tpu_torch.convert",
+        description="JAX checkpoint (.ckpt) -> the PyTorch port's checkpoint (.pt)",
+    )
+    parser.add_argument("src")
+    parser.add_argument("dst")
+    args = parser.parse_args(argv)
+    convert_checkpoint(args.src, args.dst)
 
 
 if __name__ == "__main__":

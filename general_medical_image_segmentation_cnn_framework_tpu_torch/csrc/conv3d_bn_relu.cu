@@ -1,21 +1,27 @@
-// Fused k3 s1 SAME Conv3d + folded BatchNorm + ReLU for Hopper (sm_90a).
+// Fused k3 s1 SAME Conv3d / Conv2d + folded BatchNorm + ReLU for Hopper (sm_90a).
 //
 // y[n,d,h,w,o] = relu(sum_{dz,dy,dx,c} x[n,d+dz-1,h+dy-1,w+dx-1,c] * wt[dz,dy,dx,c,o] + b[o])
-// on NDHWC tensors, with BatchNorm already folded into wt and b by the caller.
+// on NDHWC tensors, with BatchNorm already folded into wt and b by the caller. KD, a
+// template parameter, is the number of depth taps: 3 for the 3-D conv, 1 for the 2-D
+// conv, whose NHWC input is launched as NDHWC with D = 1 and whose weight is
+// [3,3,Cin,Cout] (dz = 0 only: no depth tap is gathered and then wasted on padding).
 //
-// Replaces three TPU kernels of the JAX package that compute this one function:
-//   ops/pallas_conv.py    fused_conv3d_bn_relu     (_conv_block_kernel)
+// Replaces four TPU kernels of the JAX package that compute this one function:
+//   ops/pallas_conv.py    fused_conv3d_bn_relu     (_conv_block_kernel)            KD = 3
 //   ops/pallas_tlayout.py conv2d_tapcols_tlayout   (_kernel; eval forward of conv3d_tlayout)
-//   ops/pallas_tlayout.py conv3d_tlayout_fused     (_kernel_fused)
-// Their T-layout, lane folding, pad-to-128 and VMEM budgeting only fit the TPU's
-// tiling and are not carried over.
+//   ops/pallas_tlayout.py conv3d_tlayout_fused     (_kernel_fused)                 KD = 3
+//   ops/pallas_tlayout.py conv2d_plane_tlayout     (_kernel with kd = 1: the 2-D conv
+//                         and, on flipped transposed weights, its input gradient)  KD = 1
+// Their T-layout, lane folding, pad-to-128, Cin pad to 32 and VMEM budgeting only fit
+// the TPU's tiling and are not carried over.
 //
-// Formulation: an implicit GEMM, C[M, Cout] = A[M, 27*Cin] x B[27*Cin, Cout], with
-// M = N*D*H*W output voxels and k = tap*Cin + c (tap = (dz*3+dy)*3+dx). A is never
-// materialised: each block gathers its A tile straight from the NDHWC input, and the
-// SAME zero padding is a bounds check on (d, h, w), not a padded copy. B is the weight
-// tensor as it lies in memory, [3,3,3,Cin,Cout] == [27*Cin, Cout]. f32 accumulation,
-// bias + ReLU in the epilogue, one write of y in x's dtype.
+// Formulation: an implicit GEMM, C[M, Cout] = A[M, KD*9*Cin] x B[KD*9*Cin, Cout], with
+// M = N*D*H*W output voxels and k = tap*Cin + c (tap = (dz*3+dy)*3+dx, dz only for
+// KD = 3). A is never materialised: each block gathers its A tile straight from the
+// NDHWC input, and the SAME zero padding is a bounds check on (d, h, w), not a padded
+// copy. B is the weight tensor as it lies in memory, [KD,3,3,Cin,Cout] ==
+// [KD*9*Cin, Cout]. f32 accumulation, bias + ReLU in the epilogue, one write of y in
+// x's dtype.
 //
 // What bounds it on an H100: moving each input and output voxel once, the stem
 // (Cin = 1, Cout = 32, bf16) does about 26 FLOPs per byte of HBM traffic, under the
@@ -25,11 +31,14 @@
 // BM voxels, and the 27 taps re-read each input voxel from L2, not HBM. Ragged M, K
 // and Cout edges are zero-filled on load and masked on store, so any Cin and Cout
 // work. All element offsets are 64-bit: a 16 x 128^3 x 64 activation has 2.1e9
-// elements. No TMA or wgmma yet.
+// elements. No TMA or wgmma yet. The 2-D convs of UNet2D (16 x 128^2, Cin 1 to 1024)
+// are bound the same way: the 1 -> 64 stem by bytes (about 9 FLOPs per byte in bf16),
+// every other conv by the math (from about 290 FLOPs per byte at 64 -> 64 up); the deep
+// 8^2 and 16^2 grids hold only 1,024-4,096 output voxels, 8-32 row tiles, so few blocks.
 //
 // The launcher picks one of three variants from what it can see of the call:
-//   bf16, Cin and Cout multiples of 8, 16-byte aligned pointers (every UNet3D conv
-//     but the stem): 16-byte cp.async copies into a 3-deep ring of tiles, so copies
+//   bf16, Cin and Cout multiples of 8, 16-byte aligned pointers (every UNet3D and
+//     UNet2D conv but the stem): 16-byte cp.async copies into a 3-deep ring of tiles, so copies
 //     overlap the tensor-core math (WMMA 16x16x16, f32 accumulation); tiles 32
 //     channels wide at Cout <= 32, else 64;
 //   other bf16 (the Cin = 1 stem): scalar gathers, WMMA;
@@ -48,7 +57,7 @@ constexpr int THREADS = 256;
 
 struct Shape {
   long long m;  // N*D*H*W
-  int d, h, w, cin, cout, k;  // k = 27*cin
+  int d, h, w, cin, cout, k;  // k = KD*9*cin
   int relu;
 };
 
@@ -75,12 +84,13 @@ struct Tap {
   long long delta;  // voxel offset of the tap
 };
 
+template <int KD>
 __device__ __forceinline__ Tap tap_of(const Shape& s, int k) {
   Tap t;
   t.ok = k < s.k;
   int tap = t.ok ? k / s.cin : 0;
   t.c = k - tap * s.cin;
-  t.dz = tap / 9 - 1;
+  t.dz = KD == 3 ? tap / 9 - 1 : 0;
   t.dy = (tap / 3) % 3 - 1;
   t.dx = tap % 3 - 1;
   t.delta = ((long long)t.dz * s.h + t.dy) * s.w + t.dx;
@@ -99,6 +109,7 @@ __device__ __forceinline__ T gather(const T* __restrict__ x, const Shape& s, con
 }
 
 // f32: shared-memory tiles and an 8 x 4 register micro-tile per thread.
+template <int KD>
 __global__ void __launch_bounds__(THREADS)
 conv3d_bn_relu_f32(const float* __restrict__ x, const float* __restrict__ wt,
                    const float* __restrict__ bias, float* __restrict__ y, Shape s) {
@@ -123,7 +134,7 @@ conv3d_bn_relu_f32(const float* __restrict__ x, const float* __restrict__ wt,
   __syncthreads();
 
   for (int k0 = 0; k0 < s.k; k0 += BK) {
-    const Tap t = tap_of(s, k0 + a_k);
+    const Tap t = tap_of<KD>(s, k0 + a_k);
 #pragma unroll
     for (int i = 0; i < BM / 8; ++i) {
       int r = a_r + 8 * i;
@@ -174,6 +185,7 @@ constexpr int AB_BYTES = (BM * LDA + BK * LDB) * 2;
 constexpr int C_BYTES = BM * LDC * 4;
 constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
 
+template <int KD>
 __global__ void __launch_bounds__(THREADS)
 conv3d_bn_relu_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, Shape s) {
@@ -203,7 +215,7 @@ conv3d_bn_relu_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   __syncthreads();
 
   for (int k0 = 0; k0 < s.k; k0 += BK) {
-    const Tap t = tap_of(s, k0 + a_k);
+    const Tap t = tap_of<KD>(s, k0 + a_k);
 #pragma unroll
     for (int i = 0; i < BM / 8; ++i) {
       int r = a_r + 8 * i;
@@ -276,7 +288,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int WARPS_N>
+template <int KD, int WARPS_N>
 __global__ void __launch_bounds__(128 * WARPS_N)
 conv3d_bn_relu_bf16_async(const __nv_bfloat16* __restrict__ x,
                           const __nv_bfloat16* __restrict__ wt, const float* __restrict__ bias,
@@ -317,7 +329,7 @@ conv3d_bn_relu_bf16_async(const __nv_bfloat16* __restrict__ x,
 
   auto load_stage = [&](int kt, int slot) {
     const int k0 = kt * BK;
-    const Tap t = tap_of(s, k0 + a_c * 8);  // 8 channels of one tap: Cin % 8 == 0
+    const Tap t = tap_of<KD>(s, k0 + a_c * 8);  // 8 channels of one tap: Cin % 8 == 0
     __nv_bfloat16* a_dst = As + slot * A_STAGE + a_c * 8;
 #pragma unroll
     for (int j = 0; j < A_COPIES; ++j) {
@@ -396,39 +408,51 @@ conv3d_bn_relu_bf16_async(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// x [N,D,H,W,Cin], wt [27*Cin, Cout] in x's dtype, bias [Cout] f32, y [N,D,H,W,Cout]
-// in x's dtype; all contiguous on `device`. Launches on `stream` without
-// synchronising and returns cudaGetLastError().
-extern "C" int conv3d_bn_relu_launch(const void* x, const void* wt, const void* bias, void* y,
-                                     long long n, int d, int h, int w, int cin, int cout,
-                                     int relu, int is_bf16, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  Shape s;
-  s.m = n * d * h * w;
-  s.d = d; s.h = h; s.w = w; s.cin = cin; s.cout = cout; s.k = 27 * cin;
-  s.relu = relu;
+template <int KD>
+void launch(const void* x, const void* wt, const void* bias, void* y, const Shape& s, bool aligned16,
+            int is_bf16, cudaStream_t st) {
   const unsigned m_tiles = (unsigned)((s.m + BM - 1) / BM);
-  dim3 grid(m_tiles, (unsigned)((cout + BN - 1) / BN));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool aligned16 = ((reinterpret_cast<unsigned long long>(x) |
-                           reinterpret_cast<unsigned long long>(wt) |
-                           reinterpret_cast<unsigned long long>(y)) & 15) == 0;
+  dim3 grid(m_tiles, (unsigned)((s.cout + BN - 1) / BN));
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(wt);
   const auto* bf = static_cast<const float*>(bias);
   auto* yb = static_cast<__nv_bfloat16*>(y);
-  if (is_bf16 && cin % 8 == 0 && cout % 8 == 0 && aligned16 && cout <= 32)
-    conv3d_bn_relu_bf16_async<1><<<dim3(m_tiles, 1), 128, 0, st>>>(xb, wb, bf, yb, s);
-  else if (is_bf16 && cin % 8 == 0 && cout % 8 == 0 && aligned16)
-    conv3d_bn_relu_bf16_async<2><<<grid, 256, 0, st>>>(xb, wb, bf, yb, s);
+  const bool async = is_bf16 && s.cin % 8 == 0 && s.cout % 8 == 0 && aligned16;
+  if (async && s.cout <= 32)
+    conv3d_bn_relu_bf16_async<KD, 1><<<dim3(m_tiles, 1), 128, 0, st>>>(xb, wb, bf, yb, s);
+  else if (async)
+    conv3d_bn_relu_bf16_async<KD, 2><<<grid, 256, 0, st>>>(xb, wb, bf, yb, s);
   else if (is_bf16)
-    conv3d_bn_relu_bf16<<<grid, THREADS, 0, st>>>(xb, wb, bf, yb, s);
+    conv3d_bn_relu_bf16<KD><<<grid, THREADS, 0, st>>>(xb, wb, bf, yb, s);
   else
-    conv3d_bn_relu_f32<<<grid, THREADS, 0, st>>>(
+    conv3d_bn_relu_f32<KD><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(wt),
         static_cast<const float*>(bias), static_cast<float*>(y), s);
+}
+
+}  // namespace
+
+// x [N,D,H,W,Cin], wt [kd*9*Cin, Cout] in x's dtype, bias [Cout] f32, y [N,D,H,W,Cout]
+// in x's dtype; all contiguous on `device`. kd = 3 is the 3-D conv, kd = 1 the 2-D conv
+// (D = 1). Launches on `stream` without synchronising and returns cudaGetLastError(),
+// or cudaErrorInvalidValue for another kd.
+extern "C" int conv3d_bn_relu_launch(const void* x, const void* wt, const void* bias, void* y,
+                                     long long n, int d, int h, int w, int cin, int cout,
+                                     int kd, int relu, int is_bf16, int device, void* stream) {
+  if (kd != 1 && kd != 3) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Shape s;
+  s.m = n * d * h * w;
+  s.d = d; s.h = h; s.w = w; s.cin = cin; s.cout = cout; s.k = kd * 9 * cin;
+  s.relu = relu;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned16 = ((reinterpret_cast<unsigned long long>(x) |
+                           reinterpret_cast<unsigned long long>(wt) |
+                           reinterpret_cast<unsigned long long>(y)) & 15) == 0;
+  if (kd == 3)
+    launch<3>(x, wt, bias, y, s, aligned16, is_bf16, st);
+  else
+    launch<1>(x, wt, bias, y, s, aligned16, is_bf16, st);
   return (int)cudaGetLastError();
 }

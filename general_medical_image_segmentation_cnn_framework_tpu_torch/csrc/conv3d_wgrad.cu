@@ -1,15 +1,19 @@
-// Weight gradient of the k3 s1 SAME Conv3d for Hopper (sm_90a).
+// Weight gradient of the k3 s1 SAME Conv3d / Conv2d for Hopper (sm_90a).
 //
 // dw[dz,dy,dx,ci,co] = sum_{n,d,h,w} x[n,d+dz-1,h+dy-1,w+dx-1,ci] * g[n,d,h,w,co]
 // on NDHWC tensors x [N,D,H,W,Cin] and g [N,D,H,W,Cout] (the cotangent of the conv's
-// output), with the SAME zero padding; dw is f32 [3,3,3,Cin,Cout].
+// output), with the SAME zero padding; dw is f32 [KD,3,3,Cin,Cout]. KD, a template
+// parameter, is the number of depth taps: 3 for the 3-D conv, 1 for the 2-D conv, whose
+// NHWC tensors are launched with D = 1 (dz = 0 only).
 //
 // Replaces the TPU kernel of the JAX package that computes this function:
-//   ops/pallas_tlayout.py wgrad_tapcols_tlayout (_wgrad_kernel)
-// Its T-layout im2col rebuild and the grid-resident accumulator (the TPU grid runs
+//   ops/pallas_tlayout.py wgrad_tapcols_tlayout (_wgrad_kernel)                 KD = 3
+// and, with KD = 1, the 2-D conv's weight gradient, which the JAX package leaves to
+// XLA (ops/pallas_tlayout.py _wgrad2d_tlayout, in the VJP of conv2d_plane_tlayout).
+// The T-layout im2col rebuild and the grid-resident accumulator (the TPU grid runs
 // in order, so one VMEM block sums over the whole grid) are not carried over.
 //
-// Formulation: a GEMM, dw[M, Cout] = A[M, V] x g[V, Cout], with M = 27*Cin rows
+// Formulation: a GEMM, dw[M, Cout] = A[M, V] x g[V, Cout], with M = KD*9*Cin rows
 // (m = tap*Cin + ci, tap = (dz*3+dy)*3+dx: the layout of dw in memory) and the
 // reduction over the V = N*D*H*W voxels of g. A[m, v] is the x voxel under tap m of
 // output voxel v, gathered on the fly; a tap in the SAME padding reads as zero by a
@@ -24,10 +28,14 @@
 // 432 at Cin = Cout = 32, over the card's bf16 ridge of about 295, so it is bound by the
 // math from 32 channels up and by bytes below. All element offsets are 64-bit; voxel
 // coordinates are decoded in 32 bits, so V must stay below 2^31 (the launcher checks).
+// UNet2D (16 x 128^2) has the other extreme: V = 4,096 voxels at the 16^2 grid against
+// M = 9*1024 = 9,216 rows (72 x 4 output tiles, so the sizing splits it only in two), and
+// the stem's M = 9 rows, which leave 119 of the FMA tile's 128 rows empty (its useful
+// work is 0.3 GFLOP).
 //
 // The launcher picks one of two variants from what it can see of the call:
-//   bf16, Cin and Cout multiples of 8, 16-byte aligned pointers (every UNet3D conv but
-//     the stem): 16-byte cp.async copies of 8 channels into a 3-deep ring of tiles,
+//   bf16, Cin and Cout multiples of 8, 16-byte aligned pointers (every UNet3D and
+//     UNet2D conv but the stem): 16-byte cp.async copies of 8 channels into a 3-deep ring of tiles,
 //     tensor cores (WMMA 16x16x16, f32 accumulation), tiles 32 or 64 channels wide;
 //   other bf16 (the Cin = 1 stem) and f32: scalar loads into f32 tiles and a
 //     register-tiled FMA (exact f32, no TF32).
@@ -44,7 +52,7 @@ constexpr int BK = 32;   // voxels per reduction step
 struct WShape {
   int v;                    // voxels N*D*H*W
   int d, h, w, cin, cout;
-  int m;                    // 27*cin
+  int m;                    // KD*9*cin
   int chunk;                // voxels per split, a multiple of BK
 };
 
@@ -55,12 +63,13 @@ struct Row {
   long long delta;
 };
 
+template <int KD>
 __device__ __forceinline__ Row row_of(const WShape& s, int m) {
   Row r;
   r.ok = m < s.m;
   int tap = r.ok ? m / s.cin : 0;
   r.c = m - tap * s.cin;
-  r.dz = tap / 9 - 1;
+  r.dz = KD == 3 ? tap / 9 - 1 : 0;
   r.dy = (tap / 3) % 3 - 1;
   r.dx = tap % 3 - 1;
   r.delta = ((long long)r.dz * s.h + r.dy) * s.w + r.dx;
@@ -108,7 +117,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 constexpr int FBN = 64;
 constexpr int FTHREADS = 256;
 
-template <typename T>
+template <int KD, typename T>
 __global__ void __launch_bounds__(FTHREADS)
 wgrad_fma(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ part, WShape s) {
   __shared__ float As[BK][BM];   // [voxel][row]
@@ -122,7 +131,7 @@ wgrad_fma(const T* __restrict__ x, const T* __restrict__ g, float* __restrict__ 
   const int a_m = tid % BM, a_k = tid / BM;   // A loads: row a_m, voxels a_k + 2i
   const int b_n = tid % FBN, b_k = tid / FBN; // B loads: column b_n, voxels b_k + 4i
   const int tx = tid % 16, ty = tid / 16;     // compute: cols tx + 16j, rows ty + 16i
-  const Row r = row_of(s, m0 + a_m);
+  const Row r = row_of<KD>(s, m0 + a_m);
   const bool b_ok = n0 + b_n < s.cout;
 
   float acc[8][4];
@@ -202,7 +211,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int WARPS_N>
+template <int KD, int WARPS_N>
 __global__ void __launch_bounds__(128 * WARPS_N)
 wgrad_bf16_async(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
                  float* __restrict__ part, WShape s) {
@@ -229,7 +238,7 @@ wgrad_bf16_async(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   // a_k + (NT/16)*j; B copies: voxel b_k, 8 channels from b_c*8
   const int a_c = tid % (BM / 8), a_k = tid / (BM / 8);
   const int b_k = tid / (TN / 8), b_c = tid % (TN / 8);
-  const Row r = row_of(s, m0 + a_c * 8);
+  const Row r = row_of<KD>(s, m0 + a_c * 8);
   const bool b_ok = n0 + b_c * 8 < s.cout;
   // coordinates of this thread's A-copy voxels for the next stage to load; stages
   // are loaded in order, so each load advances them by one stage of BK voxels
@@ -335,43 +344,53 @@ __global__ void sum_splits(const float* __restrict__ part, float* __restrict__ d
   }
 }
 
+template <int KD>
+void launch(const void* x, const void* g, float* out, const WShape& s, int splits, bool aligned16,
+            int is_bf16, cudaStream_t st) {
+  const unsigned m_tiles = (unsigned)((s.m + BM - 1) / BM);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  const bool async = is_bf16 && s.cin % 8 == 0 && s.cout % 8 == 0 && aligned16;
+  if (async && s.cout <= 32)
+    wgrad_bf16_async<KD, 1><<<dim3(m_tiles, 1, splits), 128, 0, st>>>(xb, gb, out, s);
+  else if (async)
+    wgrad_bf16_async<KD, 2><<<dim3(m_tiles, (s.cout + 63) / 64, splits), 256, 0, st>>>(xb, gb, out, s);
+  else if (is_bf16)
+    wgrad_fma<KD, __nv_bfloat16><<<dim3(m_tiles, (s.cout + FBN - 1) / FBN, splits), FTHREADS, 0, st>>>(
+        xb, gb, out, s);
+  else
+    wgrad_fma<KD, float><<<dim3(m_tiles, (s.cout + FBN - 1) / FBN, splits), FTHREADS, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), out, s);
+}
+
 }  // namespace
 
 // x [N,D,H,W,Cin] and g [N,D,H,W,Cout] in one dtype (bf16 or f32), contiguous; dw f32
-// [27*Cin, Cout]; part f32 [splits, 27*Cin, Cout] (unused, may equal dw, when splits is
-// 1). Each split covers `chunk` voxels (a multiple of 32). Launches on `stream` without
-// synchronising and returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
-// kernels do not take.
+// [kd*9*Cin, Cout]; part f32 [splits, kd*9*Cin, Cout] (unused, may equal dw, when splits
+// is 1). kd = 3 is the 3-D conv, kd = 1 the 2-D conv (D = 1). Each split covers `chunk`
+// voxels (a multiple of 32). Launches on `stream` without synchronising and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape the kernels do not take.
 extern "C" int conv3d_wgrad_launch(const void* x, const void* g, void* dw, void* part,
-                                   long long n, int d, int h, int w, int cin, int cout,
+                                   long long n, int d, int h, int w, int cin, int cout, int kd,
                                    int chunk, int splits, int is_bf16, int device, void* stream) {
+  const long long v = n * d * h * w;
+  if ((kd != 1 && kd != 3) || v <= 0 || v >= (1LL << 31) || chunk <= 0 || chunk % BK != 0 ||
+      splits < 1 || (long long)chunk * (splits - 1) >= v || (long long)chunk * splits < v)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long v = n * d * h * w;
-  if (v <= 0 || v >= (1LL << 31) || chunk <= 0 || chunk % BK != 0 || splits < 1 ||
-      (long long)chunk * (splits - 1) >= v || (long long)chunk * splits < v)
-    return (int)cudaErrorInvalidValue;
   WShape s;
   s.v = (int)v;
-  s.d = d; s.h = h; s.w = w; s.cin = cin; s.cout = cout; s.m = 27 * cin;
+  s.d = d; s.h = h; s.w = w; s.cin = cin; s.cout = cout; s.m = kd * 9 * cin;
   s.chunk = chunk;
   float* out = static_cast<float*>(splits > 1 ? part : dw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned m_tiles = (unsigned)((s.m + BM - 1) / BM);
   const bool aligned16 = ((reinterpret_cast<unsigned long long>(x) |
                            reinterpret_cast<unsigned long long>(g)) & 15) == 0;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* gb = static_cast<const __nv_bfloat16*>(g);
-  if (is_bf16 && cin % 8 == 0 && cout % 8 == 0 && aligned16 && cout <= 32)
-    wgrad_bf16_async<1><<<dim3(m_tiles, 1, splits), 128, 0, st>>>(xb, gb, out, s);
-  else if (is_bf16 && cin % 8 == 0 && cout % 8 == 0 && aligned16)
-    wgrad_bf16_async<2><<<dim3(m_tiles, (cout + 63) / 64, splits), 256, 0, st>>>(xb, gb, out, s);
-  else if (is_bf16)
-    wgrad_fma<__nv_bfloat16><<<dim3(m_tiles, (cout + FBN - 1) / FBN, splits), FTHREADS, 0, st>>>(
-        xb, gb, out, s);
+  if (kd == 3)
+    launch<3>(x, g, out, s, splits, aligned16, is_bf16, st);
   else
-    wgrad_fma<float><<<dim3(m_tiles, (cout + FBN - 1) / FBN, splits), FTHREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), out, s);
+    launch<1>(x, g, out, s, splits, aligned16, is_bf16, st);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long mn = (long long)s.m * cout;

@@ -1,7 +1,9 @@
-"""The building blocks UNet3D uses, channels-last (NDHWC).
+"""The building blocks UNet3D and UNet2D use, channels-last (NDHWC / NHWC).
 
 Parameters are float32 and keep the JAX package's layouts, so converted
-checkpoints need no transposes: conv kernels are [kd, kh, kw, Cin, Cout].
+checkpoints need no transposes: conv kernels are [kd, kh, kw, Cin, Cout]
+in 3-D and [kh, kw, Cin, Cout] in 2-D; a block's spatial rank is its
+weight's rank less two.
 Each block computes in its ``dtype`` (float32 or bfloat16) by casting its
 input and weights explicitly, as the JAX blocks do; BatchNorm folding and
 biases stay float32. Kernels are initialised by ``config.init_type``
@@ -10,12 +12,13 @@ biases stay float32. Kernels are initialised by ``config.init_type``
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv3d_bn_relu import conv3d_bn_relu, conv3d_k3s1, fold_batchnorm
+from ..ops.conv3d_bn_relu import conv2d_bn_relu, conv2d_k3s1, conv3d_bn_relu, conv3d_k3s1, fold_batchnorm
 from .init import bias_initializer, kernel_initializer
 from .norm import BatchNorm
 
@@ -25,40 +28,54 @@ def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
 
 
 class TorchConv(nn.Module):
-    """k3 s1 p1 Conv3d with bias; ``weight`` is [3, 3, 3, Cin, Cout].
+    """Conv with bias over ``ndim`` spatial axes (3 or 2); ``weight`` is
+    [k, .., k, Cin, Cout].
 
-    Runs ``conv3d_k3s1``: the hand-written kernels on a card (forward,
-    input gradient and weight gradient), their plain versions on the CPU."""
+    ``kernel_size=3`` is the k3 s1 p1 conv, run by ``conv3d_k3s1`` or
+    ``conv2d_k3s1``: the hand-written kernels on a card (forward, input
+    gradient and weight gradient), their plain versions on the CPU.
+    ``kernel_size=1`` is the pointwise conv of a head, one matmul over the
+    channels."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
         init_type: str = "none", generator: Optional[torch.Generator] = None,
+        ndim: int = 3, kernel_size: int = 3,
     ):
         super().__init__()
-        self.dtype = dtype
+        if ndim not in (2, 3) or kernel_size not in (1, 3):
+            raise ValueError(f"TorchConv: ndim must be 2 or 3 and kernel_size 1 or 3, got {ndim}, {kernel_size}")
+        self.dtype, self.ndim, self.kernel_size = dtype, ndim, kernel_size
         gen = _generator(generator)
-        self.weight = nn.Parameter(kernel_initializer(init_type)((3, 3, 3, cin, cout), gen))
+        self.weight = nn.Parameter(kernel_initializer(init_type)((kernel_size,) * ndim + (cin, cout), gen))
         self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d_k3s1(x.to(self.dtype).contiguous(), self.weight, self.bias)
+        x = x.to(self.dtype)
+        if self.kernel_size == 1:
+            w = self.weight.reshape(self.weight.shape[-2:]).to(self.dtype)
+            return x @ w + self.bias.to(self.dtype)
+        conv = conv3d_k3s1 if self.ndim == 3 else conv2d_k3s1
+        return conv(x.contiguous(), self.weight, self.bias)
 
 
 class ConvBlock(nn.Module):
-    """Conv3d(k3, p1) -> BatchNorm -> ReLU, UNet3D's block.
+    """Conv(k3, p1) -> BatchNorm -> ReLU over ``ndim`` spatial axes: the
+    block of UNet3D (3) and of UNet2D (2).
 
     In eval mode BatchNorm is folded into the conv (in f32) and the block is
-    one ``conv3d_bn_relu`` call: the CUDA kernel on a card, its plain
-    version on the CPU. Train mode runs ``TorchConv`` (the kernels with
-    their gradients), then train-mode BatchNorm and ReLU with autograd."""
+    one ``conv3d_bn_relu`` or ``conv2d_bn_relu`` call: the CUDA kernel on a
+    card, its plain version on the CPU. Train mode runs ``TorchConv`` (the
+    kernels with their gradients), then train-mode BatchNorm and ReLU with
+    autograd."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
-        init_type: str = "none", generator: Optional[torch.Generator] = None,
+        init_type: str = "none", generator: Optional[torch.Generator] = None, ndim: int = 3,
     ):
         super().__init__()
         self.dtype = dtype
-        self.conv = TorchConv(cin, cout, dtype, init_type, generator)
+        self.conv = TorchConv(cin, cout, dtype, init_type, generator, ndim)
         self.bn = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +85,8 @@ class ConvBlock(nn.Module):
             self.conv.weight, self.conv.bias, self.bn.weight, self.bn.bias,
             self.bn.running_mean, self.bn.running_var, self.bn.eps,
         )
-        return conv3d_bn_relu(x.to(self.dtype).contiguous(), w.to(self.dtype), b)
+        conv = conv3d_bn_relu if w.dim() == 5 else conv2d_bn_relu
+        return conv(x.to(self.dtype).contiguous(), w.to(self.dtype), b)
 
 
 class TorchConvTranspose(nn.Module):
@@ -97,8 +115,21 @@ class TorchConvTranspose(nn.Module):
 
 
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """MaxPool3d(window) with stride = window on NDHWC (floor output size)."""
-    n, d, h, w, c = x.shape
-    d2, h2, w2 = d // window, h // window, w // window
-    x = x[:, : d2 * window, : h2 * window, : w2 * window]
-    return x.reshape(n, d2, window, h2, window, w2, window, c).amax(dim=(2, 4, 6))
+    """MaxPool3d / MaxPool2d(window) with stride = window on NDHWC / NHWC
+    (floor output size), by x's rank."""
+    n, *spatial, c = x.shape
+    out = [s // window for s in spatial]
+    x = x[(slice(None), *(slice(0, o * window) for o in out))]
+    split = [v for o in out for v in (o, window)]
+    return x.reshape(n, *split, c).amax(dim=tuple(range(2, 2 * len(out) + 1, 2)))
+
+
+def resize_linear_align_corners(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """torch ``interpolate(mode='bilinear' / 'trilinear', align_corners=True)``
+    of the spatial axes of NHWC / NDHWC x to ``shape``: output index j samples
+    the input at j*(in-1)/(out-1) per axis, as the JAX package's function of
+    the same name. In x's dtype (for bf16 PyTorch interpolates in f32 and
+    rounds once; the JAX package lerps in bf16)."""
+    mode = "bilinear" if x.dim() == 4 else "trilinear"
+    y = F.interpolate(x.movedim(-1, 1), size=tuple(int(s) for s in shape), mode=mode, align_corners=True)
+    return y.movedim(1, -1)

@@ -1,4 +1,4 @@
-"""Fused k3 s1 SAME Conv3d + folded BatchNorm + ReLU on NDHWC tensors.
+"""Fused k3 s1 SAME Conv3d / Conv2d + folded BatchNorm + ReLU, channels-last.
 
 The eval ConvBlock of UNet3D is one call of ``conv3d_bn_relu``: BatchNorm
 is folded into the conv's weights and bias (``fold_batchnorm``), and the
@@ -20,6 +20,14 @@ relu=False and the conv bias in the kernel's bias, its input gradient is
 ``conv3d_input_grad`` (this kernel again on the spatially flipped,
 Cin<->Cout-transposed weights, with its own launch count), and its weight
 gradient is ``ops.conv3d_wgrad``.
+
+The 2-D counterparts, on NHWC tensors with [3, 3, Cin, Cout] weights, are
+``conv2d_bn_relu``, ``conv2d_input_grad`` and ``conv2d_k3s1``, each with
+its own launch count. They run the same kernel with one depth tap
+(KD = 1) on the input taken as NDHWC with D = 1, and replace the JAX
+package's Pallas kernel ``ops/pallas_tlayout.conv2d_plane_tlayout`` (the
+2-D zoo's conv and, through its custom VJP, that conv's input gradient);
+their weight gradient is ``ops.conv3d_wgrad.conv2d_wgrad``.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv3d_wgrad import conv3d_wgrad
+from .conv3d_wgrad import conv2d_wgrad, conv3d_wgrad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -54,67 +62,81 @@ def fold_batchnorm(
     return kernel.float() * g, (b - bn_mean.float()) * g + bn_bias.float()
 
 
+def _reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
+    """``F.conv3d`` or ``F.conv2d`` (by x's rank) + bias (+ ReLU) in f32 on
+    channels-last x and [3, .., 3, Cin, Cout] w, cast to x's dtype."""
+    nd = x.dim() - 2
+    conv = F.conv3d if nd == 3 else F.conv2d
+    y = conv(x.float().movedim(-1, 1), w.float().permute(nd + 1, nd, *range(nd)), b.float(), padding=1)
+    if relu:
+        y = F.relu(y)
+    return y.movedim(1, -1).to(x.dtype).contiguous()
+
+
 def conv3d_bn_relu_reference(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
 ) -> torch.Tensor:
     """Plain PyTorch version: ``F.conv3d`` + bias (+ ReLU) in f32, cast to
     x's dtype. x [N,D,H,W,Cin], w [3,3,3,Cin,Cout], b [Cout] -> [N,D,H,W,Cout]."""
-    y = F.conv3d(
-        x.float().permute(0, 4, 1, 2, 3),
-        w.float().permute(4, 3, 0, 1, 2),
-        b.float(),
-        padding=1,
-    )
-    if relu:
-        y = F.relu(y)
-    return y.permute(0, 2, 3, 4, 1).to(x.dtype).contiguous()
+    return _reference(x, w, b, relu)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
+def conv2d_bn_relu_reference(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
+) -> torch.Tensor:
+    """Plain PyTorch version of ``conv2d_bn_relu``: ``F.conv2d`` + bias
+    (+ ReLU) in f32, cast to x's dtype. x [N,H,W,Cin], w [3,3,Cin,Cout],
+    b [Cout] -> [N,H,W,Cout]."""
+    return _reference(x, w, b, relu)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, nd: int) -> None:
+    name = f"conv{nd}d_bn_relu"
     if x.dtype not in _DTYPES:
-        raise TypeError(f"conv3d_bn_relu: x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 5 or x.numel() == 0:
-        raise ValueError(f"conv3d_bn_relu: x must be a non-empty [N,D,H,W,Cin], got {tuple(x.shape)}")
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != nd + 2 or x.numel() == 0:
+        layout = "[N,D,H,W,Cin]" if nd == 3 else "[N,H,W,Cin]"
+        raise ValueError(f"{name}: x must be a non-empty {layout}, got {tuple(x.shape)}")
     cin = x.shape[-1]
-    if w.dim() != 5 or tuple(w.shape[:4]) != (3, 3, 3, cin):
-        raise ValueError(f"conv3d_bn_relu: w must be [3,3,3,{cin},Cout], got {tuple(w.shape)}")
+    if w.dim() != nd + 2 or tuple(w.shape[:-1]) != (3,) * nd + (cin,):
+        raise ValueError(f"{name}: w must be [{'3,' * nd}{cin},Cout], got {tuple(w.shape)}")
     if w.dtype != x.dtype:
-        raise TypeError(f"conv3d_bn_relu: w must have x's dtype {x.dtype}, got {w.dtype}")
+        raise TypeError(f"{name}: w must have x's dtype {x.dtype}, got {w.dtype}")
     if tuple(b.shape) != (w.shape[-1],) or b.dtype != torch.float32:
-        raise ValueError(
-            f"conv3d_bn_relu: b must be float32 [{w.shape[-1]}], got {b.dtype} {tuple(b.shape)}"
-        )
+        raise ValueError(f"{name}: b must be float32 [{w.shape[-1]}], got {b.dtype} {tuple(b.shape)}")
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
-        raise ValueError("conv3d_bn_relu: x, w and b must be contiguous")
+        raise ValueError(f"{name}: x, w and b must be contiguous")
     if not (x.device == w.device == b.device):
-        raise ValueError(
-            f"conv3d_bn_relu: x, w and b must share a device, got {x.device}, {w.device}, {b.device}"
-        )
+        raise ValueError(f"{name}: x, w and b must share a device, got {x.device}, {w.device}, {b.device}")
 
 
 @functools.cache
 def _kernel():
     lib = _build.load("conv3d_bn_relu")
     fn = lib.conv3d_bn_relu_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The kernel on x [N,D,H,W,Cin] (KD = 3) or x [N,H,W,Cin] (KD = 1,
+    launched as D = 1); y has x's rank."""
+    nd = x.dim() - 2
     if x.device.type != "cuda":
-        raise ValueError(f"conv3d_bn_relu: unsupported device {x.device}")
-    n, d, h, wd, cin = x.shape
+        raise ValueError(f"conv{nd}d_bn_relu: unsupported device {x.device}")
+    n, *spatial, cin = x.shape
+    d, h, wd = spatial if nd == 3 else (1, *spatial)
     cout = w.shape[-1]
-    y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, *spatial, cout), dtype=x.dtype, device=x.device)
     err = _kernel()(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, d, h, wd, cin, cout, int(relu), int(x.dtype == torch.bfloat16),
+        n, d, h, wd, cin, cout, 3 if nd == 3 else 1, int(relu), int(x.dtype == torch.bfloat16),
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"conv3d_bn_relu: CUDA launch failed with cudaError {err}")
+        raise RuntimeError(f"conv{nd}d_bn_relu: CUDA launch failed with cudaError {err}")
     return y
 
 
@@ -127,7 +149,7 @@ def conv3d_bn_relu(
     (BN folded in); b float32 [Cout]. A CUDA tensor runs the CUDA kernel and
     adds one to ``conv3d_bn_relu.launches``; a CPU tensor runs
     ``conv3d_bn_relu_reference``."""
-    _check(x, w, b)
+    _check(x, w, b, 3)
     if x.device.type == "cpu":
         return conv3d_bn_relu_reference(x, w, b, relu)
     y = _launch(x, w, b, relu)
@@ -138,16 +160,43 @@ def conv3d_bn_relu(
 conv3d_bn_relu.launches = 0
 
 
+def conv2d_bn_relu(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
+) -> torch.Tensor:
+    """y = [relu](conv2d_k3s1_same(x, w) + b), NHWC in x's dtype.
+
+    x [N,H,W,Cin] float32 or bfloat16; w [3,3,Cin,Cout] in x's dtype (BN
+    folded in); b float32 [Cout]. A CUDA tensor runs the kernel with one
+    depth tap and adds one to ``conv2d_bn_relu.launches``; a CPU tensor runs
+    ``conv2d_bn_relu_reference``."""
+    _check(x, w, b, 2)
+    if x.device.type == "cpu":
+        return conv2d_bn_relu_reference(x, w, b, relu)
+    y = _launch(x, w, b, relu)
+    conv2d_bn_relu.launches += 1
+    return y
+
+
+conv2d_bn_relu.launches = 0
+
+
 def _flip_transpose(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The weights and zero bias that turn the forward conv into its input
-    gradient: k3 s1 SAME correlation is self-adjoint up to this relabelling."""
-    zero = torch.zeros(w.shape[3], dtype=torch.float32, device=w.device)
-    return w.flip((0, 1, 2)).transpose(3, 4).contiguous(), zero
+    gradient: k3 s1 SAME correlation is self-adjoint up to this relabelling
+    (all spatial axes flipped, Cin and Cout swapped)."""
+    nd = w.dim() - 2
+    zero = torch.zeros(w.shape[nd], dtype=torch.float32, device=w.device)
+    return w.flip(tuple(range(nd))).transpose(nd, nd + 1).contiguous(), zero
 
 
 def conv3d_input_grad_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of ``conv3d_input_grad``, in f32, cast to g's dtype."""
     return conv3d_bn_relu_reference(g, *_flip_transpose(w), relu=False)
+
+
+def conv2d_input_grad_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``conv2d_input_grad``, in f32, cast to g's dtype."""
+    return conv2d_bn_relu_reference(g, *_flip_transpose(w), relu=False)
 
 
 def conv3d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -158,7 +207,7 @@ def conv3d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     CUDA tensor launches it and adds one to ``conv3d_input_grad.launches``
     (not to ``conv3d_bn_relu``'s); a CPU tensor runs the plain version."""
     w_t, zero = _flip_transpose(w)
-    _check(g, w_t, zero)
+    _check(g, w_t, zero, 3)
     if g.device.type == "cpu":
         return conv3d_bn_relu_reference(g, w_t, zero, relu=False)
     dx = _launch(g, w_t, zero, relu=False)
@@ -169,24 +218,49 @@ def conv3d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 conv3d_input_grad.launches = 0
 
 
-class _Conv3dK3S1(torch.autograd.Function):
+def conv2d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx [N,H,W,Cin] of y = conv2d_k3s1_same(x, w) for the cotangent g
+    [N,H,W,Cout], in g's dtype; w [3,3,Cin,Cout] in g's dtype.
+
+    The 2-D conv kernel on ``w.flip(0,1).transpose(2,3)`` with zero bias, as
+    the VJP of ``pallas_tlayout.conv2d_tlayout`` runs its dgrad. A CUDA
+    tensor launches it and adds one to ``conv2d_input_grad.launches``; a
+    CPU tensor runs the plain version."""
+    w_t, zero = _flip_transpose(w)
+    _check(g, w_t, zero, 2)
+    if g.device.type == "cpu":
+        return conv2d_bn_relu_reference(g, w_t, zero, relu=False)
+    dx = _launch(g, w_t, zero, relu=False)
+    conv2d_input_grad.launches += 1
+    return dx
+
+
+conv2d_input_grad.launches = 0
+
+# by spatial rank: forward, input gradient, weight gradient
+_OPS = {3: (conv3d_bn_relu, conv3d_input_grad, conv3d_wgrad), 2: (conv2d_bn_relu, conv2d_input_grad, conv2d_wgrad)}
+
+
+class _ConvK3S1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias):
         w = weight.to(x.dtype).contiguous()
         ctx.save_for_backward(x, w)
-        return conv3d_bn_relu(x, w, bias.float().contiguous(), relu=False)
+        forward, _, _ = _OPS[x.dim() - 2]
+        return forward(x, w, bias.float().contiguous(), relu=False)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        _, input_grad, wgrad = _OPS[x.dim() - 2]
         g = g.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:  # not for the stem, whose input is data
-            dx = conv3d_input_grad(g, w)
+            dx = input_grad(g, w)
         if ctx.needs_input_grad[1]:
-            dw = conv3d_wgrad(x, g)
+            dw = wgrad(x, g)
         if ctx.needs_input_grad[2]:
-            db = g.float().sum(dim=(0, 1, 2, 3))
+            db = g.float().sum(dim=tuple(range(g.dim() - 1)))
         return dx, dw, db
 
 
@@ -197,4 +271,15 @@ def conv3d_k3s1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
     weight [3,3,3,Cin,Cout] and bias [Cout] float32 parameters. The conv
     runs in x's dtype with f32 accumulation and returns x's dtype; the
     weight and bias gradients are float32."""
-    return _Conv3dK3S1.apply(x, weight, bias)
+    if x.dim() != 5:
+        raise ValueError(f"conv3d_k3s1: x must be [N,D,H,W,Cin], got {tuple(x.shape)}")
+    return _ConvK3S1.apply(x, weight, bias)
+
+
+def conv2d_k3s1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """k3 s1 SAME conv2d + bias with gradients for x, weight and bias:
+    ``conv3d_k3s1`` for x [N,H,W,Cin] and weight [3,3,Cin,Cout], on the
+    2-D kernels (``conv2d_bn_relu``, ``conv2d_input_grad``, ``conv2d_wgrad``)."""
+    if x.dim() != 4:
+        raise ValueError(f"conv2d_k3s1: x must be [N,H,W,Cin], got {tuple(x.shape)}")
+    return _ConvK3S1.apply(x, weight, bias)

@@ -12,7 +12,7 @@ later tiles overwriting. Only the final mask leaves the device.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -39,7 +39,7 @@ def _crop_box(start: Sequence[int], patch: Sequence[int], spatial: Sequence[int]
 
 @torch.inference_mode()
 def sliding_window_predict(
-    model: torch.nn.Module,
+    model: Callable[[torch.Tensor], torch.Tensor],
     volume: torch.Tensor,
     patch_size: Sequence[int],
     patch_overlap: Sequence[int],
@@ -47,7 +47,8 @@ def sliding_window_predict(
 ) -> torch.Tensor:
     """Crop-mode sliding-window argmax mask of ``volume``.
 
-    model:  eval-mode module, tiles [B, pX, pY, pZ, C] -> logits [..., n_classes].
+    model:  eval-mode module (or ``models.make_forward``'s 2-D adapter of one),
+            tiles [B, pX, pY, pZ, C] -> logits [..., n_classes].
     volume: [X, Y, Z, C] on the model's device (``prepare_volume``).
     Returns an int8 [X, Y, Z] mask on the same device."""
     patch = tuple(int(p) for p in patch_size)

@@ -9,6 +9,10 @@ grid (``patch_overlap`` 4,4,36 by default) -> argmax mask written as
     python -m general_medical_image_segmentation_cnn_framework_tpu_torch.predict \\
         config=unet config.ckpt=<port checkpoint .pt>
 
+A 2-D network (``config=unet2d``, patch "1, H, W") runs on each tile's one
+slice through ``models.make_forward``'s adapter; the overlap of the depth
+axis is then clamped to 0.
+
 The model runs on the CUDA card unless ``config.platform=cpu``; without a
 card and without that it raises instead of falling back to the CPU. On the
 card every eval ConvBlock is the hand-written kernel. Volumes go through one
@@ -35,7 +39,7 @@ from .data.pipeline import get_subjects, load_subject
 from .data.transforms import ZNormalization
 from .logging_utils import ProgressBars, get_logger, log_config
 from .metrics import multiclass_seg_metrics, seg_metrics
-from .models import build_model
+from .models import build_model, make_forward
 from .ops.sliding_window import prepare_volume, sliding_window_predict
 
 METRIC_NAMES = ("precision", "recall", "jaccard", "dice", "hs95")
@@ -74,6 +78,7 @@ def predict(model=None, config=None, logger=None):
     pairs = get_subjects(config)
     logger.info(f"predicting {len(pairs)} volumes")
     overlap = _overlap(config)
+    forward = make_forward(config, model)
     znorm = ZNormalization()
     progress = ProgressBars()
     file_task = progress.add_task("[red]file", total=len(pairs))
@@ -84,7 +89,7 @@ def predict(model=None, config=None, logger=None):
         t0 = time.perf_counter()
         vol = prepare_volume(znorm.normalize_array(subject.source.data), device, model.dtype)
         mask = sliding_window_predict(
-            model, vol, config.patch_size, overlap, int(config.batch_size)
+            forward, vol, config.patch_size, overlap, int(config.batch_size)
         )
         pred = mask.cpu().numpy()[None].astype(np.int32)
         logger.info(f"File {i + 1}: sliding window {time.perf_counter() - t0:.3f} s")

@@ -1,9 +1,14 @@
-"""Training entry point: UNet3D binary segmentation on the CUDA card.
+"""Training entry point: UNet3D or UNet2D binary segmentation on the CUDA card.
 
 Same CLI, run dir and checkpoints as the JAX package's ``train.py`` on its
 default path::
 
     python -m general_medical_image_segmentation_cnn_framework_tpu_torch.train config=unet
+    python -m general_medical_image_segmentation_cnn_framework_tpu_torch.train config=unet2d
+
+A 2-D network (``models.is_2d``) trains on ``patch_size`` "1, H, W"
+patches: ``models.make_forward`` drops the depth axis of the [B, 1, H, W, C]
+batch and restores it on the logits, as the JAX package's ``make_forward``.
 
 Adam(init_lr) with the per-epoch StepLR (or cosine / poly) schedule,
 BCE-with-logits on the (background, foreground) target with the dice
@@ -37,7 +42,7 @@ from .checkpoint import restore_training_state, save_epoch_checkpoints
 from .config import compose, log_ignored_keys, resolve_device
 from .data import make_dataset
 from .logging_utils import AverageMeter, ProgressBars, TBWriter, get_logger, log_config
-from .models import build_model
+from .models import build_model, make_forward
 from .ops.fused_bce_dice import fused_bce_dice_metrics
 
 # (key, test that it asks for something the port does not do, ROADMAP item)
@@ -138,14 +143,15 @@ def make_loss_and_metric(config) -> Callable:
     return loss_and_metric
 
 
-def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, loss_and_metric) -> Callable:
+def make_train_step(forward: Callable, optimizer: torch.optim.Optimizer, loss_and_metric) -> Callable:
     """``step(x, gt) -> (loss, dice)``, detached 0-d tensors on the device:
-    forward, loss, backward, ``optimizer.step``. BatchNorm running stats
-    update in the forward (train mode)."""
+    forward (the model, or ``models.make_forward``'s adapter of it), loss,
+    backward, ``optimizer.step``. BatchNorm running stats update in the
+    forward (train mode)."""
 
     def train_step(x: torch.Tensor, gt: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
-        pred = model(x)
+        pred = forward(x)
         loss, dice = loss_and_metric(pred, gt)
         loss.backward()
         optimizer.step()
@@ -185,7 +191,7 @@ def train(config, model=None, logger=None) -> Dict[str, Any]:
 
     writer = TBWriter(config.hydra_path)
     dataset = make_dataset(config, is_train=True, device=device)
-    train_step = make_train_step(model, optimizer, loss_and_metric)
+    train_step = make_train_step(make_forward(config, model), optimizer, loss_and_metric)
 
     lr_schedule = make_scheduler(config)
     use_scheduler = getattr(config, "use_scheduler", True)

@@ -1,6 +1,6 @@
 """The port runs without JAX: imported with ``jax``, ``flax`` and the JAX
-package itself blocked, it still builds UNet3D and runs a forward and a
-train step on the CPU; no source of the port or ``chip_smoke.py`` imports
+package itself blocked, it still builds UNet3D and UNet2D and runs a
+forward and a train step of each on the CPU; no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
 card."""
 
@@ -40,6 +40,17 @@ cfg = ConfigDict(out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
 model.train()
 step = make_train_step(model, make_optimizer(cfg, model.parameters()), make_loss_and_metric(cfg))
 loss, dice = step(torch.randn(2, 16, 16, 16, 1), (torch.rand(2, 16, 16, 16, 1) > 0.5).float())
+assert torch.isfinite(loss) and 0 <= float(dice) <= 1
+from {PORT}.models import build_model, make_forward
+cfg2d = ConfigDict(network="unet2d", in_classes=1, out_classes=2, precision="float32", init_type="kaiming", seed=0,
+                   loss="bce", optimizer="adam", init_lr=1e-3)
+unet2d = build_model(cfg2d).eval()
+with torch.inference_mode():
+    y = unet2d(torch.randn(2, 16, 16, 1))
+assert y.shape == (2, 16, 16, 2) and y.dtype == torch.float32 and torch.isfinite(y).all()
+unet2d.train()
+step = make_train_step(make_forward(cfg2d, unet2d), make_optimizer(cfg2d, unet2d.parameters()), make_loss_and_metric(cfg2d))
+loss, dice = step(torch.randn(2, 1, 16, 16, 1), (torch.rand(2, 1, 16, 16, 1) > 0.5).float())
 assert torch.isfinite(loss) and 0 <= float(dice) <= 1
 blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]

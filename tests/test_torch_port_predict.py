@@ -1,5 +1,6 @@
 """The port's sliding-window predict against the JAX package's, tile
-program and CLI, at f32 with the same weights."""
+program and CLI, at f32 with the same weights: UNet3D, and UNet2D on
+depth-1 slices (``config=unet2d``)."""
 
 import csv
 import math
@@ -98,4 +99,49 @@ def test_predict_cli_matches_jax(synthetic_dataset, tmp_path, monkeypatch):
     assert got_header == want_header == ["precision", "recall", "jaccard", "dice", "hs95"]
     assert len(got_rows) == len(want_rows) == 3  # two volumes and the mean row
     np.testing.assert_allclose(got_rows, want_rows, rtol=0, atol=1e-6)
+    assert (port_dir / "metrics.csv").read_text() == jax_csv.read_text()
+
+
+def test_predict_cli_unet2d_matches_jax(synthetic_dataset, tmp_path):
+    """``config=unet2d`` (full width, patch "1, 32, 32": every tile is one
+    slice, the depth overlap clamped to 0): JAX ``predict.predict`` on a JAX
+    .ckpt and the port's ``predict.main`` on the checkpoint converted by the
+    CLI (which tells UNet2D from UNet3D by the tree) write the same masks
+    and metrics.csv."""
+    from general_medical_image_segmentation_cnn_framework_tpu.models.two_d.unet2d import UNet2D as FlaxUNet2D
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import convert
+    from test_torch_port_unet3d import random_variables
+
+    import jax.numpy as jnp
+
+    model = FlaxUNet2D(in_channels=1, classes=2)
+    variables = random_variables(model, jnp.zeros((1, 32, 32, 1)), seed=10)
+    jax_ckpt, port_ckpt = tmp_path / "latest_checkpoint.ckpt", tmp_path / "unet2d.pt"
+    save_checkpoint(jax_ckpt, variables["params"], variables["batch_stats"], {}, epoch=1)
+    convert.main([str(jax_ckpt), str(port_ckpt)])
+
+    def overrides(out, ckpt):
+        return [
+            "config=unet2d",
+            f"config.pred_data_path={synthetic_dataset}/test/source",
+            f"config.pred_gt_path={synthetic_dataset}/test/label",
+            f"config.output_dir={out}",
+            f"config.ckpt={ckpt}",
+            "config.patch_size=1, 32, 32",
+            "config.patch_overlap=4, 4, 4",
+            "config.batch_size=8",
+            "config.precision=float32",
+        ]
+
+    jax_predict.predict(model=model, config=compose(overrides(tmp_path / "jax", jax_ckpt), job_name="predict"))
+    port_predict.main(overrides(tmp_path / "port", port_ckpt) + ["config.platform=cpu"])
+    (port_dir,) = (tmp_path / "port").glob("predict-*/*")
+    jax_masks = sorted((tmp_path / "jax").glob("predict-*/*/pred_file/pred-*.nii.gz"))
+    port_masks = sorted(port_dir.glob("pred_file/pred-*.nii.gz"))
+    assert [p.name for p in port_masks] == [p.name for p in jax_masks] == ["pred-0000.nii.gz", "pred-0001.nii.gz"]
+    for a, b in zip(port_masks, jax_masks):
+        got, want = read_volume(a), read_volume(b)
+        np.testing.assert_array_equal(got.data, want.data)
+        assert 0.0 < got.data.mean() < 1.0  # the mask is not constant
+    (jax_csv,) = (tmp_path / "jax").glob("predict-*/*/metrics.csv")
     assert (port_dir / "metrics.csv").read_text() == jax_csv.read_text()

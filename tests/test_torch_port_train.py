@@ -271,3 +271,28 @@ def test_device_dataset_crops_the_znormalised_volumes(synthetic_dataset):
     cfg.data_backend = "grain"
     with pytest.raises(NotImplementedError, match="item 9"):
         make_dataset(cfg)
+
+
+def test_train_cli_unet2d_trains_on_slices_and_refuses_a_deep_patch(synthetic_dataset, tmp_path):
+    """``train.main config=unet2d`` at UNet2D's full width on the CPU: patch
+    "1, 32, 32" slices of the 32^3 volumes, 3 steps of batch 2, finite
+    losses, the checkpoints hold UNet2D's state; a patch deeper than 1 is
+    refused with the JAX package's message."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.two_d.unet2d import UNet2D
+
+    args = [a.replace("config=unet", "config=unet2d") for a in _train_args(synthetic_dataset, tmp_path / "runs")]
+    args = [a for a in args if not a.startswith("config.patch_size")] + [
+        "config.patch_size=1, 32, 32", "config.samples_per_volume=2", "config.epochs=1",
+        "config.epochs_per_checkpoint=1",
+    ]
+    out = port_train.main(args)
+    (run,) = (tmp_path / "runs").glob("train-*/*")
+    losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+              if line.startswith("Loss: ")]
+    assert len(losses) == 3 and all(np.isfinite(losses)) and np.isfinite(out["loss"])
+    assert isinstance(out["model"], UNet2D)
+    latest = load_checkpoint(run / "latest_checkpoint.ckpt")
+    assert latest["epoch"] == 1 and (run / "checkpoint_0001.ckpt").exists()
+    assert latest["params"].keys() == UNet2D().state_dict().keys()
+    with pytest.raises(ValueError, match="needs patch_size '1, H, W', got depth 2"):
+        port_train.main(args + ["config.patch_size=2, 32, 32"])
