@@ -9,7 +9,9 @@ the repository beside it, it exits non-zero and prints no result. Phases,
 each of which stops the run with a non-zero exit when it fails:
 
 1. The card's name and power limit (``nvidia-smi``); the three CUDA sources
-   of the port (``csrc/``) are built, one ``nvcc`` each, all at once.
+   of the port (``csrc/``) are built, one ``nvcc`` each, all at once, and
+   the compiler's report of every kernel is printed: registers per thread,
+   static shared memory, spilled bytes.
 2. Conv kernel vs plain version (``conv3d_bn_relu_reference``, f32 cuDNN
    with TF32 off) at each of UNet3D's 18 conv shapes at patch 64^3, batch
    16, with random BatchNorm folded in, in bfloat16 and float32.
@@ -234,6 +236,16 @@ def main() -> None:
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         list(pool.map(build.load, SOURCES))
     print(f"[1] built {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    # the compiler's report of every kernel: registers, static shared memory, spills
+    rows = [(src, *row) for src in SOURCES for row in build.report(src)]
+    demangled = [name for _, name, *_ in rows]
+    if shutil.which("c++filt"):
+        demangled = subprocess.run(["c++filt"], input="\n".join(demangled), capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+    for (src, _, regs, smem, spill_st, spill_ld), name in zip(rows, demangled):
+        name = name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+        print(f"[1]   {src}: {name}: {regs} registers, {smem} bytes static shared memory, "
+              f"spills {spill_st} bytes stored / {spill_ld} loaded", flush=True)
 
     # -- 2. kernel vs plain at the 18 UNet3D conv shapes ------------------------
     model = UNet3D(1, 2, 32, dtype=torch.bfloat16)

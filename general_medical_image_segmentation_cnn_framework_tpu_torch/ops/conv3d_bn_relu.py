@@ -43,6 +43,28 @@ from . import _build
 from .conv3d_wgrad import conv2d_wgrad, conv3d_wgrad
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_BM = 128  # output voxels per block of the bf16 wgmma kernel
+_BK = 64  # K per pipeline stage of that kernel; K chunks are multiples of it
+_TARGET_BLOCKS = 264  # two waves of one block per SM of an H100 (132 SMs)
+_MIN_K = 256  # K a split sums at least
+
+
+def tile_n(cout: int) -> int:
+    """Output channels per block of the bf16 wgmma kernel for this Cout."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else 128 if cout <= 128 else 256
+
+
+def conv_split_k(voxels: int, k: int, cout: int):
+    """(kchunk, splits) of the bf16 wgmma conv: the reduction K = taps * Cin
+    is cut into ``splits`` ranges of ``kchunk`` (a multiple of the kernel's
+    K step) where the output tiles alone fill less than _TARGET_BLOCKS
+    blocks (the deep 4^3-16^2 grids), so that tiles x splits fill the card.
+    Each split writes an f32 partial and a second pass sums them in split
+    order, then adds the bias and the ReLU. Depends on the shapes only."""
+    tiles = -(-voxels // _BM) * -(-cout // tile_n(cout))
+    splits = max(1, min(_TARGET_BLOCKS // tiles, k // _MIN_K))
+    kchunk = -(-(-(-k // splits)) // _BK) * _BK
+    return kchunk, -(-k // kchunk)
 
 
 def fold_batchnorm(
@@ -114,24 +136,41 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, nd: int) -> None:
 def _kernel():
     lib = _build.load("conv3d_bn_relu")
     fn = lib.conv3d_bn_relu_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
+def _tiled(x: torch.Tensor, w: torch.Tensor, cout: int) -> bool:
+    """Whether the kernel takes its wgmma variant for x and w (y, allocated
+    by the wrapper, is aligned): bf16, Cin and Cout multiples of 8, 16-byte
+    aligned pointers. Only that variant splits K and reads flipped weights."""
+    return (x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0 and cout % 8 == 0
+            and (x.data_ptr() | w.data_ptr()) % 16 == 0)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], relu: bool, flip: bool = False) -> torch.Tensor:
     """The kernel on x [N,D,H,W,Cin] (KD = 3) or x [N,H,W,Cin] (KD = 1,
-    launched as D = 1); y has x's rank."""
+    launched as D = 1); y has x's rank. With ``flip``, w is the forward
+    conv's weight [3,..,3,Cout,Cin] of the conv whose input gradient this
+    is, read flipped and transposed by the kernel, and b may be None."""
     nd = x.dim() - 2
     if x.device.type != "cuda":
         raise ValueError(f"conv{nd}d_bn_relu: unsupported device {x.device}")
     n, *spatial, cin = x.shape
     d, h, wd = spatial if nd == 3 else (1, *spatial)
-    cout = w.shape[-1]
+    cout = w.shape[-2] if flip else w.shape[-1]
+    k = (3 if nd == 3 else 1) * 9 * cin
     y = torch.empty((n, *spatial, cout), dtype=x.dtype, device=x.device)
+    tiled = _tiled(x, w, cout)
+    kchunk, splits = conv_split_k(n * d * h * wd, k, cout) if tiled else (-(-k // _BK) * _BK, 1)
+    part = (torch.empty((splits, n * d * h * wd, cout), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     err = _kernel()(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, d, h, wd, cin, cout, 3 if nd == 3 else 1, int(relu), int(x.dtype == torch.bfloat16),
+        x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None, y.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        n, d, h, wd, cin, cout, 3 if nd == 3 else 1, int(relu), int(flip), int(x.dtype == torch.bfloat16),
+        kchunk, splits,
         x.device.index if x.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -199,19 +238,35 @@ def conv2d_input_grad_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tenso
     return conv2d_bn_relu_reference(g, *_flip_transpose(w), relu=False)
 
 
+def _input_grad(g: torch.Tensor, w: torch.Tensor, nd: int) -> torch.Tensor:
+    """dx of the k3 s1 SAME conv of rank nd for the cotangent g: the conv
+    kernel on the flipped, transposed weights with no bias, read so by the
+    kernel's wgmma variant straight from w; the other variants (f32, ragged
+    channels) get the flipped copy."""
+    name = f"conv{nd}d_input_grad"
+    if w.dim() != nd + 2 or tuple(w.shape[:nd]) != (3,) * nd or w.shape[-1] != g.shape[-1]:
+        raise ValueError(f"{name}: w must be [{'3,' * nd}Cin,{g.shape[-1]}], got {tuple(w.shape)}")
+    if g.device.type == "cuda" and g.dim() == nd + 2 and g.is_contiguous() and w.is_contiguous() \
+            and g.dtype == w.dtype and g.device == w.device and _tiled(g, w, w.shape[-2]):
+        return _launch(g, w, None, relu=False, flip=True)
+    w_t, zero = _flip_transpose(w)
+    _check(g, w_t, zero, nd)
+    if g.device.type == "cpu":
+        return _reference(g, w_t, zero, relu=False)
+    return _launch(g, w_t, zero, relu=False)
+
+
 def conv3d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """dx [N,D,H,W,Cin] of y = conv3d_k3s1_same(x, w) for the cotangent g
     [N,D,H,W,Cout], in g's dtype; w [3,3,3,Cin,Cout] in g's dtype.
 
-    The conv kernel on ``w.flip(0,1,2).transpose(3,4)`` with zero bias. A
-    CUDA tensor launches it and adds one to ``conv3d_input_grad.launches``
-    (not to ``conv3d_bn_relu``'s); a CPU tensor runs the plain version."""
-    w_t, zero = _flip_transpose(w)
-    _check(g, w_t, zero, 3)
-    if g.device.type == "cpu":
-        return conv3d_bn_relu_reference(g, w_t, zero, relu=False)
-    dx = _launch(g, w_t, zero, relu=False)
-    conv3d_input_grad.launches += 1
+    The conv kernel on ``w.flip(0,1,2).transpose(3,4)`` with zero bias (its
+    wgmma variant reads w so without a copy). A CUDA tensor launches it and
+    adds one to ``conv3d_input_grad.launches`` (not to ``conv3d_bn_relu``'s);
+    a CPU tensor runs the plain version."""
+    dx = _input_grad(g, w, 3)
+    if g.device.type == "cuda":
+        conv3d_input_grad.launches += 1
     return dx
 
 
@@ -223,15 +278,13 @@ def conv2d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     [N,H,W,Cout], in g's dtype; w [3,3,Cin,Cout] in g's dtype.
 
     The 2-D conv kernel on ``w.flip(0,1).transpose(2,3)`` with zero bias, as
-    the VJP of ``pallas_tlayout.conv2d_tlayout`` runs its dgrad. A CUDA
-    tensor launches it and adds one to ``conv2d_input_grad.launches``; a
-    CPU tensor runs the plain version."""
-    w_t, zero = _flip_transpose(w)
-    _check(g, w_t, zero, 2)
-    if g.device.type == "cpu":
-        return conv2d_bn_relu_reference(g, w_t, zero, relu=False)
-    dx = _launch(g, w_t, zero, relu=False)
-    conv2d_input_grad.launches += 1
+    the VJP of ``pallas_tlayout.conv2d_tlayout`` runs its dgrad (its wgmma
+    variant reads w so without a copy). A CUDA tensor launches it and adds
+    one to ``conv2d_input_grad.launches``; a CPU tensor runs the plain
+    version."""
+    dx = _input_grad(g, w, 2)
+    if g.device.type == "cuda":
+        conv2d_input_grad.launches += 1
     return dx
 
 

@@ -133,11 +133,17 @@ def cuda_device():
         (2, 4, 6, 5, 3, 70),  # ragged K, Cout over one N tile
         (2, 5, 9, 11, 64, 130),  # ragged M and Cout
         (1, 2, 2, 2, 1, 1),
-        # Cin, Cout multiples of 8: the 16-byte cp.async path in bf16
+        # Cin, Cout multiples of 8: the wgmma variants in bf16
         (1, 3, 5, 7, 8, 24),  # ragged K (216 = 6.75 K tiles), Cout <= 32
         (2, 4, 6, 5, 32, 32),
         (2, 5, 9, 11, 64, 136),  # ragged M and Cout
         (3, 7, 3, 5, 16, 8),
+        # the wgmma variant: K split at the 4^3 bottleneck, each tile width, ragged
+        # Cout, Cin != Cout, 990 voxels (not a multiple of the 128-voxel tile)
+        (16, 4, 4, 4, 512, 512),
+        (2, 5, 9, 11, 24, 40),
+        (1, 6, 7, 9, 40, 24),
+        (2, 6, 6, 6, 64, 256),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -173,7 +173,7 @@ def cuda_device():
 
 # (N, H, W, Cin, Cout): UNet2D's stem, its first decoder conv (1024 -> 256) and
 # that conv's input gradient shape (256 -> 1024, the largest Cout), a ragged
-# grid with channels multiples of 8 (the cp.async path in bf16) and one with
+# grid with channels multiples of 8 (the wgmma path in bf16) and one with
 # ragged channels (the scalar-gather path)
 CUDA_SHAPES = [
     (2, 16, 16, 1, 64),
@@ -181,6 +181,12 @@ CUDA_SHAPES = [
     (2, 8, 8, 256, 1024),
     (3, 17, 23, 64, 72),
     (1, 17, 23, 3, 5),
+    # the wgmma variants: UNet2D's 8^2 bottleneck, where the forward splits K; ragged
+    # Cout and Cin != Cout on 234 pixels (not a multiple of the 64-voxel or 128-voxel
+    # tiles); a Cout of one 8-channel chunk
+    (16, 8, 8, 512, 512),
+    (2, 9, 13, 24, 40),
+    (2, 11, 7, 136, 8),
 ]
 
 

@@ -25,11 +25,27 @@ from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.conv3d_bn_re
     conv3d_input_grad,
     conv3d_input_grad_reference,
     conv3d_k3s1,
+    conv_split_k,
 )
+from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.conv3d_bn_relu import tile_n as conv_tile_n
 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.conv3d_wgrad import (
     conv3d_wgrad,
     conv3d_wgrad_reference,
+    output_tiles,
+    split_k,
 )
+
+# (Cin, Cout, grid side) of the 18 convs of UNet3D at 16 x 64^3 and of UNet2D at 16 x 128^2
+UNET3D_CONVS = [
+    (1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16), (128, 128, 16),
+    (128, 256, 8), (256, 256, 8), (256, 512, 4), (512, 512, 4), (512, 256, 8), (256, 256, 8),
+    (256, 128, 16), (128, 128, 16), (128, 64, 32), (64, 64, 32), (64, 32, 64), (32, 32, 64),
+]
+UNET2D_CONVS = [
+    (1, 64, 128), (64, 64, 128), (64, 128, 64), (128, 128, 64), (128, 256, 32), (256, 256, 32),
+    (256, 512, 16), (512, 512, 16), (512, 512, 8), (512, 512, 8), (1024, 256, 16), (256, 256, 16),
+    (512, 128, 32), (128, 128, 32), (256, 64, 64), (64, 64, 64), (128, 64, 128), (64, 64, 128),
+]
 
 
 def _rand(shape, seed, scale=1.0):
@@ -137,6 +153,54 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
             conv3d_wgrad(*bad)
 
 
+@pytest.mark.parametrize(
+    "nd,cin,cout,side", [(3, *c) for c in UNET3D_CONVS] + [(2, *c) for c in UNET2D_CONVS]
+)
+def test_wgrad_split_plan_covers_each_voxel_once_and_fills_the_card(nd, cin, cout, side):
+    """The weight gradient's split plan at each UNet3D and UNet2D conv (batch
+    16): the same on every call, splits of whole 64-voxel pipeline steps that
+    cover every voxel exactly once, and at least one block per SM of an H100
+    (132): the stem's kernel runs one block per split, the others
+    output_tiles(rows, Cout) blocks per split."""
+    voxels, rows = 16 * side**nd, (3 if nd == 3 else 1) * 9 * cin
+    chunk, splits = split_k(rows, cout, voxels)
+    assert split_k(rows, cout, voxels) == (chunk, splits)
+    assert chunk % 64 == 0 and splits >= 1
+    seen = np.zeros(voxels, dtype=np.int64)
+    for z in range(splits):
+        seen[z * chunk:min((z + 1) * chunk, voxels)] += 1
+    assert (seen == 1).all()
+    tiles = 1 if cin == 1 else output_tiles(rows, cout)[0]
+    assert tiles * splits >= 132
+
+
+@pytest.mark.parametrize(
+    "nd,cin,cout,side,grad",
+    [(nd, cin, cout, side, grad)
+     for nd, convs in ((3, UNET3D_CONVS), (2, UNET2D_CONVS))
+     for cin, cout, side in convs if cin > 1
+     for grad in (False, True)],
+)
+def test_conv_split_plan_covers_each_k_once_and_fills_the_card(nd, cin, cout, side, grad):
+    """The K split of the wgmma conv at each UNet3D and UNet2D conv (batch 16)
+    and its input gradient (Cin and Cout swapped): the same on every call,
+    chunks of whole 64-wide K steps that cover every K index exactly once,
+    and at least one block per SM of an H100 (132) counting 128-voxel x
+    conv_tile_n(Cout) output tiles times splits. The stem (Cin = 1) takes another
+    variant."""
+    if grad:
+        cin, cout = cout, cin
+    voxels, k = 16 * side**nd, (3 if nd == 3 else 1) * 9 * cin
+    kchunk, splits = conv_split_k(voxels, k, cout)
+    assert conv_split_k(voxels, k, cout) == (kchunk, splits)
+    assert kchunk % 64 == 0 and splits >= 1
+    seen = np.zeros(k, dtype=np.int64)
+    for z in range(splits):
+        seen[z * kchunk:min((z + 1) * kchunk, k)] += 1
+    assert (seen == 1).all()
+    assert -(-voxels // 128) * -(-cout // conv_tile_n(cout)) * splits >= 132
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -151,12 +215,22 @@ def cuda_device():
         (2, 4, 6, 5, 3, 70),  # ragged rows and Cout over one tile
         (1, 2, 2, 2, 1, 1),
         (2, 5, 9, 11, 64, 136),  # ragged voxels, Cout over two tiles
-        # Cin, Cout multiples of 8: the 16-byte cp.async path in bf16
+        # Cin, Cout multiples of 8: the wgmma variants in bf16
         (1, 3, 5, 7, 8, 24),
         (2, 4, 6, 5, 32, 32),
         (3, 7, 3, 5, 16, 8),
         (4, 16, 16, 16, 32, 32),  # split into several voxel chunks
         (2, 4, 4, 4, 512, 512),  # the bottleneck's width
+        # the wgmma variant's tile widths (bf16), ragged and asymmetric; 990 and 378
+        # voxels are not multiples of its 64-voxel step
+        (2, 5, 9, 11, 24, 40),  # 64 wide, ragged Cout, Cin != Cout
+        (1, 6, 7, 9, 64, 24),  # 32 wide, ragged Cout, 14 row tiles
+        (2, 6, 10, 7, 16, 136),  # 128 wide, Cout over two tiles
+        (2, 8, 8, 8, 128, 256),  # 128 wide, two full tiles
+        (2, 5, 9, 11, 8, 64),  # Cin = 8: one 8-row chunk per tap
+        # the bf16 stem variant (Cin = 1, Cout a multiple of 8), one and several splits
+        (2, 9, 10, 11, 1, 32),
+        (3, 17, 16, 16, 1, 32),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -182,8 +256,12 @@ def test_cuda_wgrad_matches_plain_version(cuda_device, shape, dtype):
     [
         (1, 3, 5, 7, 1, 32),  # the stem's transposed shape: one output channel (ragged-Cout masking)
         (2, 4, 6, 5, 3, 70),  # ragged channels, Cin over one tile
-        (2, 5, 9, 11, 64, 32),  # cp.async path, 32-wide tile
+        (2, 5, 9, 11, 64, 32),  # wgmma variant, 32-wide tile
         (2, 4, 4, 4, 512, 256),  # the bottleneck's width
+        # the wgmma variant: K split at the 4^3 bottleneck, ragged and asymmetric widths
+        (16, 4, 4, 4, 512, 512),
+        (2, 5, 9, 11, 40, 24),
+        (2, 4, 6, 5, 136, 16),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
