@@ -30,7 +30,15 @@ each of which stops the run with a non-zero exit when it fails:
    loss sum within 1e-5 relative, the three counts exact, the gradient
    within 1e-6 * s at the train step's scale s = 1/(2V) and at s = 1 (the
    gradient is (sigmoid(l) - t) * s, so |gradient| <= s and the limit bites
-   at any s: 1e-6 absolute at s = 1).
+   at any s: 1e-6 absolute at s = 1); three calls of each give the same
+   bits. The train step's ``fused_bce_dice_metrics`` at each shape: its
+   (loss, jaccard, dice) against the epilogue of the plain sums (loss within
+   1e-5 relative, jaccard and dice within 1e-6 relative), and the gradient
+   of its loss for a cotangent of 0.75 (the kernel divides it by 2V) within
+   1e-6 * s at s = 0.75 / (2V). Per call at each shape: the device time
+   (the kernel's self device time under ``torch.profiler`` over 50 calls;
+   one kernel a call), the wrapper's time (CUDA events over 50 back-to-back
+   calls) and the host's microseconds (the host clock around those calls).
 6. The conv's input gradient (``conv3d_input_grad``: the conv kernel on
    flipped, transposed weights) vs ``torch.nn.grad.conv3d_input`` and its
    weight gradient (the wgrad kernel) vs its plain version in f64 on the
@@ -50,7 +58,11 @@ each of which stops the run with a non-zero exit when it fails:
    batches from the device dataset of the same config: the step's time by
    CUDA events (recorded by hooks on the model, the loss and the optimizer),
    split into forward, loss, backward and optimizer, and two more steps
-   under ``torch.profiler``: the card's busy share and its time by kernel.
+   under ``torch.profiler``: the card's busy share and its time by kernel,
+   with one forward and one backward loss kernel per step; then the loss
+   path alone (``train.make_loss_and_metric`` forward and
+   ``torch.autograd.grad`` of its loss) on the step's logits under the
+   profiler: those two kernels and no other launch.
 8. One train step on the card vs the same step on the CPU, f32, UNet3D at
    init_features=8 with seeded weights, batch 4 x 32^3: loss and every
    parameter's gradient.
@@ -66,7 +78,8 @@ each of which stops the run with a non-zero exit when it fails:
    17 input-gradient and 18 weight-gradient 2-D conv kernels, one sums and
    one grads kernel, and no 3-D conv kernel. Warm steps of
    ``train.make_train_step`` (through ``models.make_forward``'s slice
-   adapter) timed as in [7], with peak memory and a profile; then
+   adapter) timed as in [7], with peak memory and a profile (and the loss
+   path's kernels checked as in [7]); then
    ``predict.main`` from the trained checkpoint (masks, metrics.csv, 18
    ``conv2d_bn_relu`` launches per forward batch) and the sliding window on
    the card alone, in s per volume.
@@ -83,8 +96,11 @@ just before each and read just after; a kernel's ``launches`` in the
 kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
 the 17 input gradients, conv3d_wgrad the 18 weight gradients (bf16), at
-UNet3D's shapes; conv2d_* the same at UNet2D's; the loss kernels at UNet3D's
-logits, with the largest error of the three shapes of [5]. Bounds (``bound_ms``) are the larger of
+UNet3D's shapes; conv2d_* the same at UNet2D's; the loss kernels' ``ms`` is
+their device time per call at UNet3D's logits in [5] (the profiler's; up to
+their redesign it was the wrapper's time, host included), with their
+wrapper's time beside it as ``wrapper_ms`` and the largest error of the
+three shapes of [5]. Bounds (``bound_ms``) are the larger of
 the bytes the work must move (each input read once, each output written
 once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (bf16 tensor cores)
 or 67 TFLOP/s (f32 on CUDA cores), the H100 SXM data-sheet peaks.
@@ -138,6 +154,90 @@ def cuda_ms(torch, fn, reps=10):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_ms(torch, fn, calls=50):
+    """(device ms per call, {kernel: launches per call}) of the kernels ``fn``
+    launches, under ``torch.profiler`` over ``calls`` calls after a warm-up:
+    each kernel's mean self device time times its launches per call (the
+    profiler's count over ``calls``, rounded: it may miss the first event of
+    a window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(on_card, "the profiler recorded no device time")
+    per_call = {e.key: round(e.count / calls) for e in on_card}
+    return sum(per_call[e.key] * e.self_device_time_total / e.count for e in on_card) / 1e3, per_call
+
+
+def wrapper_and_host(torch, fn, calls=50):
+    """(ms per call by CUDA events over back-to-back calls, host us per call
+    on the host's clock before the synchronisation), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls, 1e6 * host / calls
+
+
+def loss_kernel_times(torch, op, logits, gt, scale, calls=50):
+    """{"sums" | "grads": (device ms, {kernel: launches}, wrapper ms, host us)}
+    per call of ``op.bce_dice_sums(logits, gt)`` and ``op.bce_dice_grads(logits,
+    gt, scale)``, by ``profiled_ms`` and ``wrapper_and_host`` (2 * (calls + 1)
+    calls of each). It uses only those two public functions of the port's
+    ``ops/fused_bce_dice.py``, so it times any version of it
+    (``scripts/bench_torch_loss_kernels.py``)."""
+    fns = {"sums": lambda: op.bce_dice_sums(logits, gt), "grads": lambda: op.bce_dice_grads(logits, gt, scale)}
+    return {name: (*profiled_ms(torch, fn, calls), *wrapper_and_host(torch, fn, calls)) for name, fn in fns.items()}
+
+
+def loss_path(torch, loss_fn, logits, gt):
+    """One call of the train step's loss path on a copy of ``logits``:
+    ``loss_fn(x, gt)[0]`` forward and ``torch.autograd.grad`` of it with a
+    preallocated cotangent."""
+    x = logits.clone().requires_grad_()
+    one = torch.ones((), device=x.device)
+
+    def run():
+        torch.autograd.grad(loss_fn(x, gt)[0], x, one)
+
+    return run
+
+
+def loss_path_kernels(torch, loss_op, step_kernels, loss_fn, logits, gt):
+    """Checks and describes the loss path's kernels: in the profile of two
+    train steps (``step_kernels``, the card's events of ``key_averages``) one
+    forward and one backward loss kernel per step, and in a profile of the
+    loss alone (``loss_path``, on the step's own logits) those two kernels
+    and nothing else."""
+    def short(key):
+        return key.replace("void (anonymous namespace)::", "").split("(")[0]
+
+    in_steps = {short(e.key): e.count / 2 for e in step_kernels if "bce_dice" in e.key}
+    check(len(in_steps) == 2 and all(n == 1 for n in in_steps.values()),
+          f"loss kernels per step in the profile of two train steps: {in_steps}")
+    counters = (loss_op.bce_dice_sums, loss_op.bce_dice_grads)
+    before = [f.launches for f in counters]
+    device_ms, names = profiled_ms(torch, loss_path(torch, loss_fn, logits, gt), calls=10)
+    check([f.launches - b for f, b in zip(counters, before)] == [11, 11], "loss path: launch counts")
+    check(len(names) == 2 and all("bce_dice" in k and n == 1 for k, n in names.items()),
+          f"loss path launches {names}")
+    return ("loss path: per train step " + ", ".join(f"{k} x{n:g}" for k, n in in_steps.items())
+            + f"; the loss alone on the step's logits {tuple(logits.shape)} launches {sum(names.values())} "
+            f"kernels per forward + backward ({', '.join(map(short, names))}), {device_ms:.5f} ms of device time")
 
 
 def check(ok, msg):
@@ -423,26 +523,52 @@ def main() -> None:
                 check(grad_errs[-1] <= 1e-6 * s_val,
                       f"bce_dice_grads {shape} s={s_val:.3g}: max abs error {grad_errs[-1]} > {1e-6 * s_val}")
             grad_err = grad_errs[-1]  # at s = 1: in units of the gradient's scale
+            # the train step's function: (loss, jaccard, dice) from the forward kernel's epilogue, and the
+            # gradient from the backward kernel at s = ct / (2V), with ct != 1 so that its division is checked
+            x, ct = logits.clone().requires_grad_(), torch.full((), 0.75, device=dev)
+            metrics = loss_op.fused_bce_dice_metrics(x, gt)
+            (d_got,) = torch.autograd.grad(metrics[0], x, ct)
+            m_want = loss_op._metrics_reference(loss_op.bce_dice_sums_reference(logits, gt), voxels, 0.001)
+            s_ct = (ct / (2.0 * voxels)).reshape(1)
+            d_want = loss_op.bce_dice_grads_reference(logits, gt, s_ct)
+            torch.cuda.synchronize()
+            m_errs = [abs(a.item() - b.item()) / abs(b.item()) if b.item() else abs(a.item())
+                      for a, b in zip(metrics, m_want)]
+            check(m_errs[0] <= 1e-5 and max(m_errs[1:]) <= 1e-6,
+                  f"fused_bce_dice_metrics {shape}: (loss, jaccard, dice) relative errors {m_errs}")
+            fused_err = (d_got - d_want).abs().max().item()
+            check(fused_err <= 1e-6 * s_ct.item(),
+                  f"fused_bce_dice_metrics {shape}: gradient error {fused_err} > {1e-6 * s_ct.item()}")
             scale_t = torch.full((1,), 0.5 / voxels, device=dev)
-            row = {
-                "sums": (cuda_ms(torch, lambda: sums(logits, gt)),
-                         cuda_ms(torch, lambda: loss_op.bce_dice_sums_reference(logits, gt)),
-                         *bound_ms(20.0 * voxels, 12.0 * voxels + 16, "float32"), loss_err),
-                "grads": (cuda_ms(torch, lambda: grads(logits, gt, scale_t)),
-                          cuda_ms(torch, lambda: loss_op.bce_dice_grads_reference(logits, gt, scale_t)),
-                          *bound_ms(10.0 * voxels, 20.0 * voxels + 4, "float32"), grad_err),
-            }
+            runs = [(sums(logits, gt), grads(logits, gt, scale_t)) for _ in range(3)]
+            check(all(torch.equal(a, runs[0][0]) and torch.equal(b, runs[0][1]) for a, b in runs[1:]),
+                  f"bce_dice {shape}: three calls differ")
+            before = (sums.launches, grads.launches)
+            times = loss_kernel_times(torch, loss_op, logits, gt, scale_t)
+            check((sums.launches - before[0], grads.launches - before[1]) == (102, 102)
+                  and all(list(t[1].values()) == [1] for t in times.values()),
+                  f"bce_dice {shape}: kernels per call {[t[1] for t in times.values()]}")
+            row = {}
+            for name, plain_fn, cost in (
+                ("sums", lambda: loss_op.bce_dice_sums_reference(logits, gt), (20.0 * voxels, 12.0 * voxels + 28)),
+                ("grads", lambda: loss_op.bce_dice_grads_reference(logits, gt, scale_t),
+                 (10.0 * voxels, 20.0 * voxels + 4)),
+            ):
+                device_ms, _, wrapper_ms, host_us = times[name]
+                row[name] = (device_ms, cuda_ms(torch, plain_fn), *bound_ms(*cost, "float32"), wrapper_ms, host_us)
             target = torch.cat([1.0 - gt, gt], dim=-1)
             bce_ms = cuda_ms(torch, lambda: torch.nn.functional.binary_cross_entropy_with_logits(logits, target))
             loss_errs = {"sums": max(loss_errs["sums"], loss_err), "grads": max(loss_errs["grads"], grad_err)}
-            if shape == (BATCH, PATCH, PATCH, PATCH):  # the kernel line times the 3-D shape
+            if shape == (BATCH, PATCH, PATCH, PATCH):  # the kernel line gives the 3-D shape
                 loss_rows = row
-            print(f"[5] {shape} x 2 f32 logits: sums err {loss_err:.3g} kernel {row['sums'][0]:.4f} ms "
-                  f"plain {row['sums'][1]:.4f} ms bound {row['sums'][2]:.4f} ms | grads err {grad_errs[0]:.3g} "
-                  f"at s=1/(2V), {grad_errs[1]:.3g} at s=1, "
-                  f"kernel {row['grads'][0]:.4f} ms plain {row['grads'][1]:.4f} ms bound {row['grads'][2]:.4f} ms"
-                  f" | F.binary_cross_entropy_with_logits (the loss alone, for scale) {bce_ms:.4f} ms", flush=True)
-            del logits, gt, target, d_got, d_want
+            print(f"[5] {shape} x 2 f32 logits: sums err {loss_err:.3g}, grads err {grad_errs[0]:.3g} at s=1/(2V), "
+                  f"{grad_errs[1]:.3g} at s=1; fused_bce_dice_metrics (loss, jaccard, dice) relative errors "
+                  f"{', '.join(f'{e:.3g}' for e in m_errs)}, gradient err {fused_err:.3g} at s=0.75/(2V); "
+                  f"three calls bit-identical; "
+                  + "; ".join(f"{k} device {r[0]:.5f} ms (bound {r[2]:.5f}, plain {r[1]:.4f}), wrapper {r[4]:.5f} ms, "
+                              f"host {r[5]:.1f} us per call" for k, r in row.items())
+                  + f" | F.binary_cross_entropy_with_logits (the loss alone, for scale) {bce_ms:.4f} ms", flush=True)
+            del logits, gt, target, d_got, d_want, runs, x, metrics
 
         # -- 6. input and weight gradients at the 18 conv shapes ------------------
         bw = {dt: {"dgrad": [0.0] * 4, "wgrad": [0.0] * 4} for dt in ("bfloat16", "float32")}
@@ -572,10 +698,12 @@ def main() -> None:
             marks[-1].record()
 
         loss_fn = train.make_loss_and_metric(cfg)
+        seen = []  # the logits and mask of the last step's loss
 
         def marked_loss(pred, gt):
             result = loss_fn(pred, gt)
             mark()
+            seen[:] = [pred.detach(), gt]
             return result
 
         hooks = [net.register_forward_pre_hook(mark), net.register_forward_hook(mark),
@@ -617,7 +745,8 @@ def main() -> None:
                   f"({100 * busy_ms / window_ms:.1f}%); per step, the 15 largest kernels:", flush=True)
             for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]:
                 print(f"[7]   {e.self_device_time_total / 2e3:8.3f} ms  x{e.count // 2:<4d} {e.key[:100]}", flush=True)
-        del net, opt, out, dataset, step_batches, xb, yb, step
+        print(f"[7] {loss_path_kernels(torch, loss_op, on_card, loss_fn, *seen)}", flush=True)
+        del net, opt, out, dataset, step_batches, xb, yb, step, seen
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -778,10 +907,12 @@ def main() -> None:
             marks[-1].record()
 
         loss_fn = train.make_loss_and_metric(cfg)
+        seen = []  # the logits and mask of the last step's loss
 
         def marked_loss(pred, gt):
             result = loss_fn(pred, gt)
             mark()
+            seen[:] = [pred.detach(), gt]
             return result
 
         hooks = [net.register_forward_pre_hook(mark), net.register_forward_hook(mark),
@@ -823,7 +954,8 @@ def main() -> None:
                   f"without the profiler ({50 * busy_ms / step_ms:.1f}%); the 15 largest kernels:", flush=True)
             for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]:
                 print(f"[10]   {e.self_device_time_total / 2e3:8.3f} ms  x{e.count // 2:<4d} {e.key[:100]}", flush=True)
-        del opt, out, dataset, step_batches, xb, yb, step
+        print(f"[10] {loss_path_kernels(torch, loss_op, on_card, loss_fn, *seen)}", flush=True)
+        del opt, out, dataset, step_batches, xb, yb, step, seen
 
         one = work / "one"
         for split_dir in ("source", "label"):
@@ -917,10 +1049,10 @@ def main() -> None:
           f"{agree:.6f}; train step loss {gpu_loss:.6f} vs {cpu_loss:.6f}, worst gradient error {worst:.3g} "
           f"(relative L2), head {head_worst:.3g}, conv biases (true gradient 0) {bias_worst:.3g}", flush=True)
 
-    def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err):
+    def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms, **extra}
 
     bf = totals[torch.bfloat16]
     dg, wg = bw["bfloat16"]["dgrad"], bw["bfloat16"]["wgrad"]
@@ -937,10 +1069,10 @@ def main() -> None:
               wg[0], wg[1], wg[3], bound_ms(wgrad_ops, wgrad_bytes, "bfloat16")[1], wg[2], wgrad_err),
         entry("bce_dice_sums", "fused_bce_dice.cu", f"{JAX_SRC}/ops/fused.py:81",
               loss_rows["sums"][0], loss_rows["sums"][1], loss_rows["sums"][2], loss_rows["sums"][3], None,
-              loss_errs["sums"]),
+              loss_errs["sums"], wrapper_ms=loss_rows["sums"][4]),
         entry("bce_dice_grads", "fused_bce_dice.cu", f"{JAX_SRC}/ops/fused.py:125",
               loss_rows["grads"][0], loss_rows["grads"][1], loss_rows["grads"][2], loss_rows["grads"][3], None,
-              loss_errs["grads"]),
+              loss_errs["grads"], wrapper_ms=loss_rows["grads"][4]),
         *(entry(name, src, replaces, *t2d["bfloat16"][key][:2], t2d["bfloat16"][key][3],
                 bound_ms(*work2d[key], "bfloat16")[1], t2d["bfloat16"][key][2], err2d[key])
           for name, src, key, replaces in (
