@@ -91,9 +91,31 @@ each of which stops the run with a non-zero exit when it fails:
    tests/test_torch_port_unet2d_f64.py), the head's within 1e-4 of its
    largest entry, the conv biases' (true gradient 0) within 1e-5.
 
-Phases [3], [7] and [10] are the main paths: every launch counter is set to 0
-just before each and read just after; a kernel's ``launches`` in the
-kernel line is the sum over all of them. The kernel line's times are sums over the
+12. The training options through ``train.main`` at ``config=unet``'s full
+   width (f=32, 64^3, batch 16, bf16, data_backend=device) on fresh volumes
+   like [3]'s, which also serve as the validation set, one epoch of 3
+   optimizer steps each: (a) ``optimizer=adamw weight_decay=0.01
+   grad_clip=1.0 grad_accum=2 ema_decay=0.99 val_interval=1`` and (b)
+   ``remat=true remat_policy=conv loss=bce+dice``. Every loss finite,
+   ``ema_checkpoint.ckpt`` (no optimizer state) and ``best_checkpoint.ckpt``
+   (with it) written, ``predict.main`` runs from the EMA file, and the
+   launches are what the code gives: under grad_accum=2 each microbatch
+   launches what a step launches without it, and the validation's sliding
+   window 18 eval convs a batch; under remat_policy=conv nothing launches
+   twice, and bce+dice is not the fused criterion. Then warm steps (CUDA
+   events) and peak memory for remat off / full / conv and grad_accum 1 /
+   2, with their conv launches per step (full remat: 36 forward convs); and
+   (a)'s optimizer settings with ``loss=focal`` for one step at f=8, 32^3,
+   f32, card vs CPU: loss within 1e-5 relative, the clipped mean gradient
+   within 1e-2 in relative L2 norm (as [11]), the conv biases' within 1e-5,
+   the weights after the step within 2 lr (AdamW's first step moves each by
+   about lr times the sign of its gradient) and each side's weights its own
+   gradient's AdamW step (their difference within 1e-3 lr of what the two
+   gradients give), the EMA within 0.02 lr.
+
+Phases [3], [7], [10] and [12]'s train and predict runs are the main paths:
+every launch counter is set to 0 just before each and read just after; a
+kernel's ``launches`` in the kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
 the 17 input gradients, conv3d_wgrad the 18 weight gradients (bf16), at
 UNet3D's shapes; conv2d_* the same at UNet2D's; the loss kernels' ``ms`` is
@@ -301,7 +323,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs the port on a card")
     sys.path.insert(0, str(ROOT))
-    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, models, predict, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, models, optim, predict, train
     from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
     from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, make_dataset, pipeline, transforms
     from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
@@ -1048,6 +1070,180 @@ def main() -> None:
     print(f"[11] UNet2D f32 card vs CPU: eval max|diff| {err:.3g} (logit scale {scale:.3g}), mask agreement "
           f"{agree:.6f}; train step loss {gpu_loss:.6f} vs {cpu_loss:.6f}, worst gradient error {worst:.3g} "
           f"(relative L2), head {head_worst:.3g}, conv biases (true gradient 0) {bias_worst:.3g}", flush=True)
+
+    # -- 12. the training options through train.main, and their cost ---------
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    try:
+        write_volumes(work / "data", io)
+        steps = N_VOLUMES * SAMPLES_PER_VOLUME // BATCH  # one epoch
+        n_tiles = len(pipeline.grid_locations(VOLUME, (PATCH,) * 3, OVERLAP))
+        val_batches = N_VOLUMES * -(-n_tiles // BATCH)
+        base = [
+            "config=unet",
+            f"config.data_path={work / 'data' / 'source'}",
+            f"config.gt_path={work / 'data' / 'label'}",
+            f"config.val_data_path={work / 'data' / 'source'}",
+            f"config.val_gt_path={work / 'data' / 'label'}",
+            f"config.patch_size={PATCH}, {PATCH}, {PATCH}",
+            "config.patch_overlap=" + ", ".join(map(str, OVERLAP)),
+            f"config.batch_size={BATCH}",
+            f"config.samples_per_volume={SAMPLES_PER_VOLUME}",
+            "config.epochs=1",
+            "config.epochs_per_checkpoint=1",
+        ]
+        options = {
+            "a": ["config.optimizer=adamw", "config.weight_decay=0.01", "config.grad_clip=1.0", "config.grad_accum=2",
+                  "config.ema_decay=0.99", "config.val_interval=1"],
+            "b": ["config.remat=true", "config.remat_policy=conv", "config.loss=bce+dice"],
+        }
+        none2d = {"conv2d_bn_relu": 0, "conv2d_input_grad": 0, "conv2d_wgrad": 0}
+        # (a): each optimizer step is two microbatches, each launching what a step launches
+        # without grad_accum; the validation's sliding window runs 18 eval convs a batch.
+        # (b): remat_policy=conv recomputes BatchNorm and ReLU only, so no conv runs twice;
+        # bce+dice is not the fused criterion, so no loss kernel runs
+        want = {
+            "a": {"conv3d_bn_relu": 2 * 18 * steps + 18 * val_batches, "conv3d_input_grad": 2 * 17 * steps,
+                  "conv3d_wgrad": 2 * 18 * steps, "bce_dice_sums": 2 * steps, "bce_dice_grads": 2 * steps, **none2d},
+            "b": {"conv3d_bn_relu": 18 * steps, "conv3d_input_grad": 17 * steps, "conv3d_wgrad": 18 * steps,
+                  "bce_dice_sums": 0, "bce_dice_grads": 0, **none2d},
+        }
+        for key, extra in options.items():
+            out_dir = work / f"runs_{key}"
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            t0 = time.perf_counter()
+            out = train.main(base + [f"config.output_dir={out_dir}"] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counters()
+            check(got == want[key], f"[12{key}] train launches {got} != {want[key]}")
+            (run,) = out_dir.glob("train-*/*")
+            losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+                      if line.startswith("Loss: ")]
+            check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"[12{key}] train losses {losses}")
+            line = (f"[12{key}] train.main {' '.join(o.split('.', 1)[1] for o in extra)}: {steps} optimizer steps in "
+                    f"{wall:.1f} s (data, validation and checkpoints included), launches {got} as derived, losses "
+                    f"{[round(v, 5) for v in losses]}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if key == "a":
+                ema_file, best_file = run / "ema_checkpoint.ckpt", run / "best_checkpoint.ckpt"
+                check(ema_file.exists() and best_file.exists(), "[12a] ema_checkpoint.ckpt / best_checkpoint.ckpt")
+                best, ema = checkpoint.load_checkpoint(best_file), checkpoint.load_checkpoint(ema_file)
+                check(best["optimizer"] == "adamw" and best["opt_state"]["state"] and ema["opt_state"] is None,
+                      "[12a] best has the optimizer state, the EMA file none")
+                check(math.isfinite(out["best_val_dice"]), f"[12a] validation dice {out['best_val_dice']}")
+                line += f"; validation dice {out['best_val_dice']:.4f}"
+            print(line, flush=True)
+
+        one = work / "one"
+        for split in ("source", "label"):
+            (one / split).mkdir(parents=True)
+            os.symlink(work / "data" / split / "vol-00.nii.gz", one / split / "vol-00.nii.gz")
+        zero_counters()
+        predict.main(["config=unet", f"config.pred_data_path={one / 'source'}", f"config.pred_gt_path={one / 'label'}",
+                      f"config.output_dir={work / 'pred_ema'}", f"config.ckpt={ema_file}"] + base[5:8])
+        got = read_counters()
+        check(got["conv3d_bn_relu"] == 18 * -(-n_tiles // BATCH), f"[12] predict from the EMA file: launches {got}")
+        (pred_run,) = (work / "pred_ema").glob("predict-*/*")
+        print(f"[12] predict.main from ema_checkpoint.ckpt: {(pred_run / 'metrics.csv').read_text().splitlines()[1]}",
+              flush=True)
+
+        # warm steps and peak memory by option: remat off / full / conv, grad_accum 1 / 2
+        cfg = compose(base + [f"config.output_dir={work / 'runs_a'}"], job_name="train", make_run_dir=False)
+        dataset = make_dataset(cfg, is_train=True, device=dev)
+        step_batches = []
+        while len(step_batches) < 7:
+            step_batches.extend(dataset)
+        loss_fn = train.make_loss_and_metric(cfg)
+        sd = random_state_dict(torch, UNet3D(1, 2, 32), SEED + 12)
+        settings = (("remat off, grad_accum 1", False, "", 1, 18), ("remat full", True, "full", 1, 36),
+                    ("remat conv", True, "conv", 1, 18), ("grad_accum 2", False, "", 2, 36))
+        for label, remat, policy, accum, fwd_per_step in settings:
+            net = UNet3D(1, 2, 32, dtype=torch.bfloat16, remat=remat, remat_policy=policy)
+            net.load_state_dict(sd)
+            net.to(dev).train()
+            opt = train.make_optimizer(cfg, net.parameters())
+            step = train.make_train_step(net, opt, loss_fn, accum)
+            for xb, yb in step_batches[:2]:
+                step(xb, yb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = [f.launches for f in counters]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for xb, yb in step_batches[2:7]:
+                step(xb, yb)
+            end.record()
+            end.synchronize()
+            per_step = {f.__name__: (f.launches - b) / 5 for f, b in zip(counters, before)}
+            check(per_step["conv3d_bn_relu"] == fwd_per_step and per_step["conv3d_wgrad"] == 18 * accum,
+                  f"[12] {label}: launches per step {per_step}")
+            print(f"[12] {card}: warm train step ({label}; bf16, f=32, {BATCH}x{PATCH}^3, Adam): "
+                  f"{start.elapsed_time(end) / 5:.3f} ms, peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+                  f"GiB, conv launches per step {per_step['conv3d_bn_relu']:g} forward, "
+                  f"{per_step['conv3d_input_grad']:g} input gradient, {per_step['conv3d_wgrad']:g} weight gradient",
+                  flush=True)
+            del net, opt, step
+            torch.cuda.empty_cache()
+        del dataset, step_batches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (a)'s optimizer settings with loss=focal, one step, f32, card vs CPU, as [8]
+    cfg = ConfigDict(out_classes=2, loss="focal", optimizer="adamw", weight_decay=0.01, grad_clip=1.0, init_lr=1e-3)
+    rng = np.random.default_rng(SEED + 12)
+    xs = torch.from_numpy(rng.normal(size=(4, 32, 32, 32, 1)).astype(np.float32))
+    ys = torch.from_numpy((rng.uniform(size=(4, 32, 32, 32, 1)) > 0.7).astype(np.float32))
+    sd = random_state_dict(torch, UNet3D(1, 2, 8), SEED + 12)
+    results = []
+    for device in (torch.device("cpu"), dev):
+        net = UNet3D(1, 2, 8)
+        net.load_state_dict(sd)
+        net.to(device).train()
+        opt = train.make_optimizer(cfg, net.parameters())
+        seen = {}
+        opt.register_step_pre_hook(  # after make_optimizer's clip hook: the clipped mean gradient
+            lambda o, a, k: seen.update({n: p.grad.detach().cpu().clone() for n, p in net.named_parameters()}))
+        ema = optim.EMA(net, 0.99)
+        loss, _ = train.make_train_step(net, opt, train.make_loss_and_metric(cfg), 2)(xs.to(device), ys.to(device))
+        ema.update(net)
+        results.append((loss.item(), seen, {n: p.detach().cpu() for n, p in net.named_parameters()},
+                        {n: t.cpu() for n, t in ema.state_dict(net).items()}))
+    (cpu_loss, cpu_grads, cpu_params, cpu_ema), (gpu_loss, gpu_grads, gpu_params, gpu_ema) = results
+    check(abs(gpu_loss - cpu_loss) <= 1e-5 * cpu_loss, f"[12] focal step loss card {gpu_loss} vs CPU {cpu_loss}")
+    # held as [11] holds its gradients, in relative L2 norm: at two samples a microbatch a ReLU
+    # mask flips where a pre-activation sits within f32 noise of 0 (on the CPU, weights moved by
+    # 1e-6 of themselves move this step's gradients by up to 9e-4 of a tensor's largest entry)
+    worst = worst_max = bias_worst = 0.0
+    for name, want_g in cpu_grads.items():
+        got_g = gpu_grads[name]
+        if name.endswith("conv.bias"):
+            bias_worst = max(bias_worst, (got_g - want_g).abs().max().item())
+        else:
+            worst = max(worst, ((got_g - want_g).norm() / want_g.norm()).item())
+            worst_max = max(worst_max, (got_g - want_g).abs().max().item() / want_g.abs().max().item())
+    check(worst <= 1e-2 and bias_worst <= 1e-5, f"[12] clipped gradients card vs CPU: {worst}, conv biases {bias_worst}")
+    # AdamW's first step moves each weight by lr * g / (|g| + eps) (and the decay, the same on both):
+    # about lr times the sign of g, so where the two gradients differ in sign the weights part by up
+    # to 2 lr. Each side's weights must be its own gradient's step: their difference is
+    # lr * (u(g_cpu) - u(g_card)) to rounding
+    lr = cfg.init_lr
+
+    def adam_first(g):
+        return g / (g.abs() + 1e-8)
+
+    diffs = torch.cat([(gpu_params[n] - cpu_params[n]).flatten() for n in cpu_params])
+    explained = torch.cat([lr * (adam_first(cpu_grads[n]) - adam_first(gpu_grads[n])).flatten() for n in cpu_params])
+    unexplained = (diffs - explained).abs().max().item()
+    ema_diff = max((gpu_ema[n] - cpu_ema[n]).abs().max().item() for n in cpu_params)
+    flipped = (diffs.abs() > 1e-3 * lr).float().mean().item()
+    check(diffs.abs().max().item() <= 2 * lr * 1.001 and unexplained <= 1e-3 * lr and ema_diff <= 0.02 * lr * 1.001,
+          f"[12] step card vs CPU: weights max|diff| {diffs.abs().max().item()}, beyond the gradients' steps "
+          f"{unexplained}, EMA {ema_diff}")
+    print(f"[12] UNet3D f=8 f32 step of adamw (wd 0.01) + clip 1.0 + grad_accum 2 + EMA 0.99, loss=focal, card vs "
+          f"CPU: loss {gpu_loss:.6f} vs {cpu_loss:.6f}; clipped mean gradient worst error {worst:.3g} (relative L2; "
+          f"{worst_max:.3g} of the tensor's largest entry), conv biases {bias_worst:.3g}; weights max|diff| "
+          f"{diffs.abs().max().item():.3g} (lr {lr:g}), {100 * flipped:.3f}% of them more than 1e-3 lr apart, "
+          f"{unexplained:.3g} beyond what the two gradients' AdamW steps give; EMA max|diff| {ema_diff:.3g}", flush=True)
 
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",

@@ -3,12 +3,13 @@
 "optimizer": name}``.
 
 ``params`` is the model's ``state_dict``, BatchNorm running statistics
-included. Training writes all four keys (``save_epoch_checkpoints``: the
-latest file every epoch, ``checkpoint_%04d.ckpt`` every
-``epochs_per_checkpoint``, as the JAX package does); a weights-only file
-(``convert.py`` of a JAX checkpoint without optimizer state, or an older
-port file of ``{"params", "epoch"}``) serves predict, which reads
-``params`` alone. Written with ``torch.save`` through a temporary file and
+included; ``optimizer`` is adam, adamw or sgd. Training writes all four
+keys (``save_epoch_checkpoints``: the latest file every epoch,
+``checkpoint_%04d.ckpt`` every ``epochs_per_checkpoint``, as the JAX
+package does, and ``best_checkpoint.ckpt`` when validation improves); a
+weights-only file (``ema_checkpoint.ckpt``, ``convert.py`` of a JAX
+checkpoint without optimizer state, or an older port file of
+``{"params", "epoch"}``) serves predict, which reads ``params`` alone. Written with ``torch.save`` through a temporary file and
 read with ``torch.load(weights_only=True)``, so loading runs no pickled
 code. ``restore_training_state`` resumes training (``load_mode=1``) and
 refuses a file written by another optimizer.
@@ -75,12 +76,18 @@ def restore_training_state(
     """Load weights, BatchNorm statistics and optimizer state from ``path``
     into ``model`` and ``optimizer``; returns the stored epoch. Raises
     ``ValueError`` for a file without optimizer state or written by another
-    optimizer."""
+    optimizer.
+
+    The moments, traces and step counts come from the file; the
+    hyperparameters (learning rate, weight decay, momentum) stay those
+    ``optimizer`` was built with from the run's config, as in optax, where
+    they are not state: ``load_state_dict`` would bring back the file's."""
     state = load_checkpoint(path)
     if state.get("opt_state") is None:
         raise ValueError(
-            f"{path} holds no optimizer state (a weights-only checkpoint, good for predict); "
-            "load_mode=1 resumes only from a checkpoint written by train"
+            f"{path} holds no optimizer state: it is a predict-only, weights-only checkpoint (an "
+            "ema_checkpoint.ckpt, or a converted file without optimizer state); load_mode=1 resumes "
+            "only from a checkpoint written by train with its optimizer state"
         )
     if state.get("optimizer") != optimizer_name:
         raise ValueError(
@@ -88,5 +95,8 @@ def restore_training_state(
             f"{optimizer_name!r}: its optimizer state does not fit; resume with the same optimizer"
         )
     model.load_state_dict(state["params"])
+    hyperparams = [{k: v for k, v in group.items() if k != "params"} for group in optimizer.param_groups]
     optimizer.load_state_dict(state["opt_state"])
+    for group, hp in zip(optimizer.param_groups, hyperparams):
+        group.update(hp)
     return int(state["epoch"])

@@ -287,7 +287,6 @@ def _resolve_one(path: str, tree: Dict, now: datetime.datetime, job_name: str) -
 TPU_ONLY_KEYS = (
     "mesh_shape",
     "compilation_cache_dir",
-    "jax_debug_nans",
     "dp_backend",
     "pallas_conv",
     "tlayout_conv",

@@ -7,18 +7,24 @@ Flax variable tree (params and batch_stats) onto the port's
 change, plus UNet3D's 1x1x1 head, which becomes an ``nn.Linear``. The 2-D
 tree nests one scope deeper: a 2-D ``TorchConv`` keeps its kernel and bias
 in a ``Conv_0`` child, which is how ``state_dict_from_flax`` tells the
-two apart. ``adam_state_from_optax``
-turns the JAX package's Adam state (``inject_hyperparams(optax.adam)``)
-into a ``torch.optim.Adam`` state dict: mu -> exp_avg, nu -> exp_avg_sq,
-count -> step. The two updates agree: torch's
+two apart.
+
+``optimizer_state_from_optax`` tells from the tree which optimizer the JAX
+package's ``make_optimizer`` built (adam, adamw or sgd, with or without
+``grad_clip``) and turns its state into the state dict of the port's
+optimizer for the same config (``optim.make_optimizer``): Adam / AdamW's
+mu -> exp_avg, nu -> exp_avg_sq, count -> step; SGD's trace ->
+momentum_buffer (plain SGD has no state). The updates agree: torch's
 lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps) is optax's
-lr * m_hat / (sqrt(v_hat) + eps).
+lr * m_hat / (sqrt(v_hat) + eps), and torch's momentum buffer is optax's
+trace.
 
 ``read_flax_msgpack`` reads a JAX ``.ckpt`` (``checkpoint.save_checkpoint``
 of the JAX package: flax msgpack of {params, batch_stats, opt_state, epoch})
 with ``msgpack`` alone, and ``convert_checkpoint`` writes the port's
-checkpoint from it, with the Adam state when the file has one, so that
-``load_mode=1`` in the port resumes a JAX run::
+checkpoint from it, with the optimizer's state and name when the file has
+one, so that ``load_mode=1`` in the port resumes a JAX run; an orbax
+checkpoint directory (``checkpoint_backend=orbax``) is refused::
 
     python -m general_medical_image_segmentation_cnn_framework_tpu_torch.convert \\
         latest_checkpoint.ckpt unet3d.pt
@@ -115,7 +121,7 @@ def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None)
 
 
 def _model_of(sd: Mapping[str, torch.Tensor]) -> torch.nn.Module:
-    """A port model with the shapes of ``sd`` (for Adam's parameter order)."""
+    """A port model with the shapes of ``sd`` (for the optimizer's parameter order)."""
     stem = sd["blocks.0.conv.weight"]
     if stem.ndim == 4:  # [3, 3, Cin, Cout]: UNet2D
         from .models.two_d.unet2d import UNet2D
@@ -126,26 +132,63 @@ def _model_of(sd: Mapping[str, torch.Tensor]) -> torch.nn.Module:
     return UNet3D(stem.shape[3], sd["head.weight"].shape[0], stem.shape[4])
 
 
-def adam_state_from_optax(opt_state: Mapping, model: torch.nn.Module) -> Dict:
-    """The JAX package's ``inject_hyperparams(optax.adam)`` state (as
-    ``flax.serialization.to_state_dict`` stores it) -> the state dict of a
-    ``torch.optim.Adam`` over ``model.parameters()``."""
-    inner, hyper = opt_state["inner_state"]["0"], opt_state["hyperparams"]
-    mu, nu = state_dict_from_flax(inner["mu"]), state_dict_from_flax(inner["nu"])
-    names = [name for name, _ in model.named_parameters()]
-    template = torch.optim.Adam(model.parameters()).state_dict()
-    step = float(np.asarray(inner["count"]))
-    group = dict(template["param_groups"][0])
-    group.update(
-        lr=float(np.asarray(hyper["learning_rate"])),
-        betas=(float(np.asarray(hyper["b1"])), float(np.asarray(hyper["b2"]))),
-        eps=float(np.asarray(hyper["eps"])),
-    )
-    state = {
-        i: {"step": torch.tensor(step), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-        for i, name in enumerate(names)
-    }
-    return {"state": state, "param_groups": [group]}
+def _optax_kind(opt_state: Mapping):
+    """(optimizer name, its optax state) of a ``make_optimizer`` state tree.
+
+    ``inject_hyperparams`` keeps the optimizer's state in ``inner_state``:
+    adam (``optax.adam``): {0: {count, mu, nu}, 1: {}}; adamw (adam + the
+    masked decay + the lr scale): {0: {count, mu, nu}, 1: {inner_state: {}},
+    2: {}}; sgd: {0: {trace} or {}, 1: {}}. ``grad_clip > 0`` chains
+    clip_by_global_norm in front: {0: {}, 1: <that state>}."""
+    inner = opt_state.get("inner_state") if isinstance(opt_state, Mapping) else None
+    found = _describe(opt_state)
+    if not isinstance(inner, Mapping):
+        raise ValueError(f"not an optax state of the JAX make_optimizer (no inner_state): {found}")
+    chain = inner
+    if inner.get("0") == {} and isinstance(inner.get("1"), Mapping) and inner["1"] and all(k.isdigit() for k in inner["1"]):
+        chain = inner["1"]  # the clip_by_global_norm wrapper
+    first, keys = chain.get("0"), sorted(chain)
+    if isinstance(first, Mapping) and {"count", "mu", "nu"} <= set(first):
+        if keys == ["0", "1"] and chain["1"] == {}:
+            return "adam", first
+        if keys == ["0", "1", "2"] and chain["1"] == {"inner_state": {}} and chain["2"] == {}:
+            return "adamw", first
+    if keys == ["0", "1"] and chain["1"] == {} and (first == {} or (isinstance(first, Mapping) and set(first) == {"trace"})):
+        return "sgd", first
+    raise ValueError(f"an optax state the converter does not know (adam | adamw | sgd, with or without grad_clip): {found}")
+
+
+def _describe(tree, depth: int = 0) -> str:
+    """The keys of a state tree down to the optimizer's state, for errors."""
+    if not isinstance(tree, Mapping):
+        return type(tree).__name__
+    if depth > 3:
+        return "{...}"
+    return "{" + ", ".join(f"{k}: {_describe(v, depth + 1)}" for k, v in tree.items()) + "}"
+
+
+def optimizer_state_from_optax(opt_state: Mapping, model: torch.nn.Module):
+    """(state dict of the port's optimizer over ``model.parameters()``,
+    optimizer name) from the JAX package's optax state (as
+    ``flax.serialization.to_state_dict`` stores it). The hyperparameters in
+    the state dict are placeholders: resuming takes them from the config."""
+    from .config import ConfigDict
+    from .optim import make_optimizer
+
+    name, inner = _optax_kind(opt_state)
+    optimizer = make_optimizer(ConfigDict(optimizer=name, init_lr=1e-3, momentum=0.9 if inner else 0.0),
+                               model.parameters())
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    order = [name_of[id(p)] for group in optimizer.param_groups for p in group["params"]]
+    template = optimizer.state_dict()
+    if name == "sgd":
+        trace = state_dict_from_flax(inner["trace"]) if inner else None
+        state = {i: {"momentum_buffer": trace[n]} for i, n in enumerate(order)} if trace else {}
+    else:
+        mu, nu = state_dict_from_flax(inner["mu"]), state_dict_from_flax(inner["nu"])
+        step = torch.tensor(float(np.asarray(inner["count"])))
+        state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for i, n in enumerate(order)}
+    return {"state": state, "param_groups": template["param_groups"]}, name
 
 
 def _ndarray(data: bytes, msgpack) -> np.ndarray:
@@ -185,13 +228,18 @@ def _has_chunked(tree) -> bool:
 
 def convert_checkpoint(src: Union[str, Path], dst: Union[str, Path]) -> None:
     """JAX UNet3D or UNet2D ``.ckpt`` -> the port's checkpoint at ``dst``,
-    with the Adam state when ``src`` has one (else weights only)."""
+    with the optimizer's state and name when ``src`` has one (else weights
+    only)."""
+    if Path(src).is_dir():
+        raise ValueError(
+            f"{src} is a directory: an orbax checkpoint (checkpoint_backend=orbax); the converter reads "
+            "the flax msgpack .ckpt of checkpoint_backend=msgpack only"
+        )
     state = read_flax_msgpack(src)
     sd = state_dict_from_flax(state["params"], state["batch_stats"])
     opt_state = optimizer = None
     if state.get("opt_state"):
-        model = _model_of(sd)
-        opt_state, optimizer = adam_state_from_optax(state["opt_state"], model), "adam"
+        opt_state, optimizer = optimizer_state_from_optax(state["opt_state"], _model_of(sd))
     save_checkpoint(dst, sd, int(state.get("epoch", 0)), opt_state, optimizer)
 
 

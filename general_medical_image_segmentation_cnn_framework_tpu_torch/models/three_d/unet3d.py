@@ -15,6 +15,11 @@ kernel per ConvBlock).
 Kernels are initialised by ``init_type`` (``nn.init``) from a
 ``torch.Generator`` seeded with ``seed``; the head, a plain Flax
 ``nn.Conv`` in the JAX model, keeps Flax's default LeCun-normal init.
+
+``remat=True`` recomputes each ConvBlock in the backward by
+``remat_policy`` ('' / 'full', 'conv' or 'dots'; ``nn.blocks.ConvBlock``),
+as the JAX model's ``nn.remat`` of its blocks. The module tree, and so the
+checkpoint, does not depend on it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 
 from ...nn.blocks import ConvBlock, TorchConvTranspose, max_pool
+from ...nn.blocks import remat_policy as block_remat
 from ...nn.init import lecun_normal
 
 
@@ -35,6 +41,8 @@ class UNet3D(nn.Module):
         dtype: torch.dtype = torch.float32,
         init_type: str = "none",
         seed: int = 0,
+        remat: bool = False,
+        remat_policy: str = "",
     ):
         super().__init__()
         self.dtype = dtype
@@ -47,7 +55,8 @@ class UNet3D(nn.Module):
             (16 * f, 8 * f), (8 * f, 8 * f), (8 * f, 4 * f), (4 * f, 4 * f),
             (4 * f, 2 * f), (2 * f, 2 * f), (2 * f, f), (f, f),
         ]
-        self.blocks = nn.ModuleList(ConvBlock(ci, co, dtype, init_type, gen) for ci, co in widths)
+        policy = block_remat(remat_policy) if remat else None
+        self.blocks = nn.ModuleList(ConvBlock(ci, co, dtype, init_type, gen, remat=policy) for ci, co in widths)
         self.ups = nn.ModuleList(
             TorchConvTranspose(ci, co, dtype, init_type, gen)
             for ci, co in ((16 * f, 8 * f), (8 * f, 4 * f), (4 * f, 2 * f), (2 * f, f))
@@ -60,7 +69,8 @@ class UNet3D(nn.Module):
     @classmethod
     def from_config(cls, config) -> "UNet3D":
         """The model the CLIs build: ``UNet3D(in_classes, out_classes, 32)``
-        with ``config.init_type`` drawn from ``config.seed``."""
+        with ``config.init_type`` drawn from ``config.seed``, and
+        ``config.remat`` / ``config.remat_policy``."""
         return cls(
             in_channels=config.in_classes,
             out_channels=config.out_classes,
@@ -68,6 +78,8 @@ class UNet3D(nn.Module):
             dtype=torch.bfloat16 if getattr(config, "precision", "") == "bfloat16" else torch.float32,
             init_type=getattr(config, "init_type", "none") or "none",
             seed=int(getattr(config, "seed", 0) or 0),
+            remat=bool(getattr(config, "remat", False)),
+            remat_policy=str(getattr(config, "remat_policy", "") or ""),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -17,10 +17,26 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3d_bn_relu import conv2d_bn_relu, conv2d_k3s1, conv3d_bn_relu, conv3d_k3s1, fold_batchnorm
 from .init import bias_initializer, kernel_initializer
 from .norm import BatchNorm
+
+
+# ConvBlock.remat: None (no remat), or what the backward recomputes
+REMAT_POLICIES = (None, "full", "conv", "dots")
+
+
+def remat_policy(name: Optional[str]) -> str:
+    """``config.remat_policy`` -> ``ConvBlock.remat``: '' and 'full'
+    recompute the whole block, 'conv' and 'dots' keep the conv's output;
+    anything else raises ``ValueError`` as the JAX package does."""
+    if not name or name == "full":
+        return "full"
+    if name in ("conv", "dots"):
+        return name
+    raise ValueError(f"unknown remat_policy {name!r}")
 
 
 def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -67,18 +83,47 @@ class ConvBlock(nn.Module):
     one ``conv3d_bn_relu`` or ``conv2d_bn_relu`` call: the CUDA kernel on a
     card, its plain version on the CPU. Train mode runs ``TorchConv`` (the
     kernels with their gradients), then train-mode BatchNorm and ReLU with
-    autograd."""
+    autograd.
+
+    ``remat`` (``remat_policy``: None, "full", "conv" or "dots") recomputes
+    part of the train-mode block in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``): "full" keeps only the block's
+    input and runs the conv kernel again; "conv" keeps the conv's output and
+    recomputes BatchNorm and ReLU. "dots" keeps what the JAX policy
+    ``checkpoint_dots`` keeps of this block, the convolution's product: the
+    conv kernel adds the bias in its epilogue, so that is "conv" here. The
+    conv is a ctypes kernel inside an ``autograd.Function``, out of sight of
+    a selective-checkpoint policy, so "conv" splits the block at the conv's
+    output instead. BatchNorm's running statistics move once, outside the
+    recomputed part."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
         init_type: str = "none", generator: Optional[torch.Generator] = None, ndim: int = 3,
+        remat: Optional[str] = None,
     ):
         super().__init__()
-        self.dtype = dtype
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat!r}")
+        self.dtype, self.remat = dtype, remat
         self.conv = TorchConv(cin, cout, dtype, init_type, generator, ndim)
         self.bn = BatchNorm(cout)
 
+    def _bn_relu(self, y: torch.Tensor):
+        y, mean, var = self.bn.train_forward(y)
+        return torch.relu(y), mean, var
+
+    def _block(self, x: torch.Tensor):
+        return self._bn_relu(self.conv(x))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.remat is not None:
+            if self.remat == "full":
+                y, mean, var = checkpoint(self._block, x, use_reentrant=False, preserve_rng_state=False)
+            else:  # the conv's output is kept
+                y, mean, var = checkpoint(self._bn_relu, self.conv(x), use_reentrant=False, preserve_rng_state=False)
+            self.bn.update_running(mean, var, y.numel() // y.shape[-1])
+            return y
         if self.training:
             return torch.relu(self.bn(self.conv(x)))
         w, b = fold_batchnorm(

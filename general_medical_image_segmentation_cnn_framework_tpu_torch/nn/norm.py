@@ -27,18 +27,35 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def batch_stats(xf: torch.Tensor):
+        """(mean, var) over every axis but the last, f32, var = E[x^2] - E[x]^2 >= 0."""
+        axes = tuple(range(xf.dim() - 1))
+        mean = xf.mean(dim=axes)
+        return mean, (xf.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Running statistics from one batch's (mean, var) over ``n`` values
+        per channel: momentum on the new value, the unbiased variance."""
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean)
+        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+
+    def _affine(self, xf: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+        return (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+    def train_forward(self, x: torch.Tensor):
+        """(y, mean, var) of train mode without touching the running
+        statistics: a recomputed forward (``ConvBlock``'s remat) must not
+        move them a second time."""
         xf = x.float()
-        if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = (xf.square().mean(dim=axes) - mean.square()).clamp_min(0.0)
-            n = xf.numel() // xf.shape[-1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        return y.to(x.dtype)
+        mean, var = self.batch_stats(xf)
+        return self._affine(xf, mean, var).to(x.dtype), mean, var
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return self._affine(x.float(), self.running_mean, self.running_var).to(x.dtype)
+        y, mean, var = self.train_forward(x)
+        self.update_running(mean, var, x.numel() // x.shape[-1])
+        return y

@@ -17,7 +17,10 @@ The model runs on the CUDA card unless ``config.platform=cpu``; without a
 card and without that it raises instead of falling back to the CPU. On the
 card every eval ConvBlock is the hand-written kernel. Volumes go through one
 at a time. The checkpoint may be a weights-only file or one written by
-``train``: predict reads its ``params``.
+``train``: predict reads its ``params``. The options of the JAX predict this
+port does not carry yet (``blend``, ``tta``, ``whole_volume``,
+``shape_bucket``) are refused at any value but their default
+(``refuse_unported_keys``).
 """
 
 from __future__ import annotations
@@ -44,8 +47,28 @@ from .ops.sliding_window import prepare_volume, sliding_window_predict
 
 METRIC_NAMES = ("precision", "recall", "jaccard", "dice", "hs95")
 
+# (key, its default: the crop-mode sliding window this port runs)
+UNPORTED = (("blend", "crop"), ("tta", ""), ("whole_volume", False), ("shape_bucket", 0))
 
-def _overlap(config):
+
+def refuse_unported_keys(config, keys=tuple(k for k, _ in UNPORTED)) -> None:
+    """One ``NotImplementedError`` naming every key of ``keys`` set to
+    another value than its default (``UNPORTED``): predict, and train's
+    validation, run the crop-mode sliding window only so far."""
+    defaults = dict(UNPORTED)
+    found = [
+        f"{key}={config[key]!r}"
+        for key in keys
+        if key in config and (config[key] or defaults[key]) != defaults[key]
+    ]
+    if found:
+        raise NotImplementedError(
+            "the PyTorch port does not carry these predict options yet: " + "; ".join(found)
+            + " (ROADMAP queue 1 item 6)"
+        )
+
+
+def overlap_of(config):
     overlap = config.patch_overlap
     if isinstance(overlap, str):
         overlap = tuple(int(v) for v in overlap.split(","))
@@ -58,6 +81,7 @@ def _overlap(config):
 def predict(model=None, config=None, logger=None):
     if config is None:
         raise ValueError("predict needs a config")
+    refuse_unported_keys(config)
     if model is None:
         model = build_model(config)
     device = resolve_device(config)
@@ -77,7 +101,7 @@ def predict(model=None, config=None, logger=None):
 
     pairs = get_subjects(config)
     logger.info(f"predicting {len(pairs)} volumes")
-    overlap = _overlap(config)
+    overlap = overlap_of(config)
     forward = make_forward(config, model)
     znorm = ZNormalization()
     progress = ProgressBars()

@@ -5,6 +5,7 @@ a shared header rebuilds every library that includes it. No ``nvcc`` is
 needed: only the hash is computed."""
 
 import pytest
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import _build
 

@@ -7,6 +7,7 @@ import datetime
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 pytest.importorskip("jax")  # the JAX package is this file's oracle: without JAX the file skips
 

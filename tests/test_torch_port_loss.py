@@ -30,6 +30,7 @@ tests/test_torch_port_loss.py -m cuda``.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 

@@ -8,6 +8,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 pytest.importorskip("flax")  # the JAX package is this file's oracle: without it the file skips
 
@@ -145,3 +146,21 @@ def test_predict_cli_unet2d_matches_jax(synthetic_dataset, tmp_path):
         assert 0.0 < got.data.mean() < 1.0  # the mask is not constant
     (jax_csv,) = (tmp_path / "jax").glob("predict-*/*/metrics.csv")
     assert (port_dir / "metrics.csv").read_text() == jax_csv.read_text()
+
+
+@pytest.mark.parametrize("override", ["config.blend=mean_logits", "config.tta=flips", "config.whole_volume=true",
+                                      "config.shape_bucket=16"])
+def test_predict_refuses_the_options_it_does_not_carry(override, synthetic_dataset, tmp_path):
+    """``blend``, ``tta``, ``whole_volume`` and ``shape_bucket`` at any value
+    but their default are refused with one error naming ROADMAP item 6, before
+    a checkpoint is read; their defaults pass."""
+    args = ["config=unet", "config.platform=cpu", f"config.output_dir={tmp_path}",
+            f"config.ckpt={tmp_path / 'missing.pt'}", f"config.pred_data_path={synthetic_dataset}/test/source"]
+    key = override.split("=")[0].split(".")[1]
+    with pytest.raises(NotImplementedError, match=f"{key}=.*ROADMAP queue 1 item 6"):
+        port_predict.main(args + [override])
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose as port_compose
+
+    cfg = port_compose(args + ["config.blend=crop", "config.tta=", "config.whole_volume=false", "config.shape_bucket=0"],
+                  job_name="predict", make_run_dir=False)
+    port_predict.refuse_unported_keys(cfg)

@@ -14,6 +14,7 @@ versions.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 pytest.importorskip("flax")  # the JAX package is this file's oracle: without it the file skips
 import jax  # noqa: E402

@@ -19,6 +19,7 @@ and bfloat16 only, so the test lets them take float64 too.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 pytest.importorskip("flax")  # the weights come from the JAX model's tree, as in the parity test
 

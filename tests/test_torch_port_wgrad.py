@@ -18,6 +18,7 @@ tests/test_torch_port_wgrad.py -m cuda``.
 import numpy as np
 import pytest
 import torch
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread a module)
 
 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.conv3d_bn_relu import (
     conv3d_bn_relu,
