@@ -21,7 +21,8 @@ each of which stops the run with a non-zero exit when it fails:
 3. The port's predict entry point (``predict.main``, config=unet,
    bfloat16, patch 64^3, overlap 4,4,36, batch 16) at full width
    (init_features=32, seeded random weights) on two synthetic 256x256x128
-   volumes. The conv kernel's launch count must be 18 per forward batch.
+   volumes, pipelined (loader thread, two writers). The conv kernel's
+   launch count must be 18 per forward batch.
 4. The model on the card (kernel) vs the same module on the CPU (plain),
    f32, one batch of two 64^3 tiles: logits and mask agreement.
 5. The fused BCE + dice kernels (sums, grads) vs their plain versions at the
@@ -112,8 +113,32 @@ each of which stops the run with a non-zero exit when it fails:
    about lr times the sign of its gradient) and each side's weights its own
    gradient's AdamW step (their difference within 1e-3 lr of what the two
    gradients give), the EMA within 0.02 lr.
+13. The predict options at ``config=unet``'s full width (f=32, bf16, patch
+   64^3, overlap 4,4,36, batch 16) on [3]'s volumes and checkpoint (the same
+   seeds): the warm time a volume and the conv launches (counter deltas) of
+   the sliding window in crop mode (on the card, and fetched to the host),
+   with ``blend`` mean_logits and average (the host aggregator), under
+   ``tta=flips`` (8 x 18 launches a batch), and of the whole-volume forward
+   (18 a volume), with its peak memory; the crop mask's fetch to the host
+   as int8 through pinned memory against the bit-packed bytes of the JAX
+   package's ``_pack_bits`` unpacked on the host (the same int32 mask);
+   ``shape_bucket=32`` on a 250x243x121 crop of a volume gives the
+   unbucketed mask byte for byte; the eval conv kernel in bf16 against its
+   plain version with [2]'s limits at each of the whole-volume forward's 18
+   shapes (batch 1, 256x256x128 halved per pooling level, the stem's 1->32
+   to 512 channels at 16x16x8), with its time, the plain version's and the
+   bound, and 64->32 at 1x512x512x256 (an input of 4.3e9 elements) on three
+   depth planes at each end and where the input's element offsets pass
+   2^31, each from its slab with a one-plane halo; f32 masks card vs CPU
+   for every option at UNet3D f=8 on a 96x96x64 volume (agreement at least
+   99.9%, logits within 1e-3 of their scale); UNet2D from [10]'s checkpoint
+   through ``predict.main`` with ``tta=flips:hw`` (4 x [10]'s launches) and
+   ``whole_volume=true`` (the warning, then [10]'s mask); ``train.main`` as
+   [12] with validation by the whole volume; ``predict.main`` with
+   ``tta=flips blend=mean_logits shape_bucket=32`` and with
+   ``whole_volume=true`` on [3]'s two volumes, end to end.
 
-Phases [3], [7], [10] and [12]'s train and predict runs are the main paths:
+Phases [3], [7], [10], [12] and [13]'s train and predict runs are the main paths:
 every launch counter is set to 0 just before each and read just after; a
 kernel's ``launches`` in the kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
@@ -133,6 +158,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -159,6 +185,10 @@ LEVELS = (0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0)  # pooling depth
 SLICE = 128  # UNet2D's patch is 1 x SLICE x SLICE (config=unet2d)
 F32_TOL, BF16_TOL, WGRAD_TOL = 1e-4, 1e-2, 1e-4
 TRAIN_EPOCHS, SAMPLES_PER_VOLUME = 2, 24  # 2 volumes x 24 patches = 3 batches of 16 per epoch
+ODD_CROP = (250, 243, 121)  # [13]'s shape_bucket check: a crop of a [3] volume
+BIG_CONV = ((1, 512, 512, 256), 64, 32)  # [13]: (N, D, H, W), Cin, Cout of a conv input past 2^31 elements
+INT32_ELEMENTS = 2**31  # [13]: a conv input with more elements is checked on slabs
+SMALL_VOLUME = (96, 96, 64)  # [13]'s f32 card-vs-CPU volume
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
@@ -315,6 +345,292 @@ def write_volumes(root, io):
         image = label * 2.0 + rng.normal(0, 0.3, VOLUME).astype(np.float32)
         io.write_nifti(root / "source" / f"vol-{i:02d}.nii.gz", io.Volume(image[None]))
         io.write_nifti(root / "label" / f"vol-{i:02d}.nii.gz", io.Volume(label[None]))
+
+
+def predict_options(torch, dev, card, zero_counters, read_counters, unet2d_run, e2e_per_volume):
+    """Phase [13]: the predict options at full width (see the module docstring)."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, pipeline, transforms
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import sliding_window as sw
+
+    kernel, plain, kernel2d = conv.conv3d_bn_relu, conv.conv3d_bn_relu_reference, conv.conv2d_bn_relu
+    t_phase = time.perf_counter()
+    patch = (PATCH,) * 3
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    try:
+        write_volumes(work / "data", io)  # [3]'s volumes and checkpoint: the same seeds
+        ckpt = work / "unet3d.pt"
+        checkpoint.save_checkpoint(ckpt, random_state_dict(torch, UNet3D(1, 2, 32), SEED), epoch=0)
+        net = UNet3D(1, 2, 32, dtype=torch.bfloat16)
+        net.load_state_dict(checkpoint.load_checkpoint(ckpt)["params"])
+        net.to(dev).eval()
+        subject = pipeline.load_subject((work / "data" / "source" / "vol-00.nii.gz",
+                                         work / "data" / "label" / "vol-00.nii.gz"))
+        vol = sw.prepare_volume(transforms.ZNormalization().normalize_array(subject.source.data), dev, torch.bfloat16)
+        batches = -(-len(pipeline.grid_locations(VOLUME, patch, OVERLAP)) // BATCH)
+        tta = predict.make_forward_fn(ConfigDict(network="unet", tta="flips"), net)
+
+        # warm time a volume and conv launches by option (counter deltas: not the main path's)
+        options = {
+            "crop": (lambda: sw.sliding_window_predict(net, vol, patch, OVERLAP, BATCH), 18 * batches),
+            "crop, fetched to the host": (
+                lambda: sw.sliding_window_predict(net, vol, patch, OVERLAP, BATCH, sync=False)(), 18 * batches),
+            "blend=mean_logits": (
+                lambda: sw.sliding_window_predict(net, vol, patch, OVERLAP, BATCH, overlap_mode="mean_logits"),
+                18 * batches),
+            "blend=average (host aggregator)": (
+                lambda: sw.sliding_window_predict(net, vol, patch, OVERLAP, BATCH, overlap_mode="average")(),
+                18 * batches),
+            "tta=flips": (lambda: sw.sliding_window_predict(tta, vol, patch, OVERLAP, BATCH), 8 * 18 * batches),
+            "whole_volume": (lambda: sw.whole_volume_predict(net, vol, pad_multiple=16), 18),
+            "whole_volume, fetched to the host": (
+                lambda: sw.whole_volume_predict(net, vol, pad_multiple=16, sync=False)(), 18),
+        }
+        for label, (run, want) in options.items():
+            run()
+            torch.cuda.synchronize()
+            times, before = [], kernel.launches
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            check(kernel.launches - before == 3 * want, f"[13] {label}: {kernel.launches - before} launches, not 3 x {want}")
+            print(f"[13] {card}: {label}: {', '.join(f'{v:.4f}' for v in times)} s a volume {VOLUME}, "
+                  f"{want} conv3d_bn_relu launches", flush=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        whole = sw.whole_volume_predict(net, vol, pad_multiple=16)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        crop = sw.sliding_window_predict(net, vol, patch, OVERLAP, BATCH)
+        agree = (whole == crop).float().mean().item()
+        print(f"[13] whole_volume peak memory {peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB above the "
+              f"{resident / 2**30:.3f} GiB of weights and volume); its mask agrees with crop's on {agree:.6f} of the "
+              f"voxels", flush=True)
+
+        # the crop mask's fetch to the host as the JAX package's int32 [1, X, Y, Z]: int8 through pinned
+        # memory, against the bytes of the JAX _pack_bits (8x fewer; bit j of byte i is voxel 8i + j)
+        # unpacked on the host; alternated, 5 calls each after a warm-up
+        bit = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=dev)
+
+        def fetch(packed):
+            src = crop
+            if packed:
+                src = (crop.view(*crop.shape[:2], -1, 8).to(torch.uint8) * bit).sum(-1, dtype=torch.uint8)
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            host.copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            arr = host.numpy()
+            if packed:
+                arr = np.unpackbits(arr.reshape(-1), bitorder="little").reshape(crop.shape).view(np.int8)
+            return arr[None].astype(np.int32)
+
+        check(np.array_equal(fetch(False), fetch(True)), "[13] the bit-packed fetch gives another mask")
+        fetch_ms = {False: [], True: []}
+        for _ in range(5):
+            for packed in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fetch(packed)
+                fetch_ms[packed].append(1e3 * (time.perf_counter() - t0))
+        print(f"[13] {card}: the crop mask's fetch to the host ({'x'.join(map(str, VOLUME))}, int32 out): int8 "
+              f"{', '.join(f'{v:.3f}' for v in fetch_ms[False])} ms; bit-packed and unpacked on the host "
+              f"{', '.join(f'{v:.3f}' for v in fetch_ms[True])} ms", flush=True)
+
+        # shape_bucket=32 on an odd-shaped crop: the unbucketed mask, byte for byte
+        odd = vol[:ODD_CROP[0], :ODD_CROP[1], :ODD_CROP[2]].contiguous()
+        unbucketed = sw.sliding_window_predict(net, odd, patch, OVERLAP, BATCH, sync=False)()
+        padded = sw.pad_volume(odd, 32)
+        bucketed = sw.sliding_window_predict(net, padded, patch, OVERLAP, BATCH, true_spatial=ODD_CROP, sync=False)()
+        check(bucketed.shape == (1, *ODD_CROP) and bucketed.tobytes() == unbucketed.tobytes(),
+              "[13] shape_bucket=32: the mask differs from the unbucketed one")
+        print(f"[13] shape_bucket=32 on a {'x'.join(map(str, ODD_CROP))} crop (padded to "
+              f"{'x'.join(map(str, padded.shape[:3]))} on the card): the unbucketed mask byte for byte "
+              f"({int(bucketed.sum())} foreground voxels)", flush=True)
+        widths = [tuple(block.conv.weight.shape[3:]) for block in net.blocks]
+        del net, vol, tta, whole, crop, odd, padded
+
+        # the eval conv kernel at the whole-volume forward's 18 shapes (batch 1, the 256x256x128 volume
+        # needs no padding to 16 and halves per pooling level) and at 1x512x512x256, against its plain version
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        shapes = [((1, *(s >> level for s in VOLUME)), cin, cout) for (cin, cout), level in zip(widths, LEVELS)]
+        sums = [0.0, 0.0, 0.0]
+        for i, (shape, cin, cout) in enumerate([*shapes, BIG_CONV]):
+            w, b = conv.fold_batchnorm(
+                torch.randn(3, 3, 3, cin, cout, device=dev, generator=gen) * (27 * cin) ** -0.5,
+                0.1 * torch.randn(cout, device=dev, generator=gen), 0.5 + torch.rand(cout, device=dev, generator=gen),
+                0.1 * torch.randn(cout, device=dev, generator=gen), 0.1 * torch.randn(cout, device=dev, generator=gen),
+                0.5 + 1.5 * torch.rand(cout, device=dev, generator=gen))
+            w = w.to(torch.bfloat16)
+            x = torch.randn((*shape, cin), device=dev, generator=gen, dtype=torch.bfloat16)
+            y = kernel(x, w, b)
+            torch.cuda.synchronize()
+            k_ms = cuda_ms(torch, lambda: kernel(x, w, b), reps=3)
+            b_ms = bound_ms(*conv_work(math.prod(shape), cin, cout, 2), "bfloat16")[0]
+            if x.numel() < INT32_ELEMENTS:  # the whole conv
+                want = plain(x.float(), w.float(), b)
+                planes = "all planes"
+                p_ms = cuda_ms(torch, lambda: plain(x, w, b), reps=3)
+                err = (y.float() - want).abs().max().item()
+                limit = BF16_TOL * max(1.0, want.abs().max().item())
+            else:  # 3 depth planes at each end and where x's element offsets pass 2^31, each from its slab + halo
+                d = shape[1]
+                mid = INT32_ELEMENTS // (cin * shape[2] * shape[3])
+                err, limit, p_ms = 0.0, 0.0, float("nan")
+                for lo, hi in ((0, 3), (mid - 1, mid + 2), (d - 3, d)):
+                    s0, s1 = max(lo - 1, 0), min(hi + 1, d)
+                    want = plain(x[:, s0:s1].float(), w.float(), b)[:, lo - s0:hi - s0]
+                    err = max(err, (y[:, lo:hi].float() - want).abs().max().item())
+                    limit = max(limit, BF16_TOL * max(1.0, want.abs().max().item()))
+                planes = f"depth planes 0-2, {mid - 1}-{mid + 1}, {d - 3}-{d - 1}"
+            check(err <= limit, f"[13] conv {cin}->{cout} at {shape}: max|kernel-plain| {err} > {limit}")
+            name = f"whole-volume ConvBlock_{i:<2d}" if i < len(shapes) else "conv past 2^31 elements"
+            print(f"[13] {name} {cin:>3d}->{cout:<3d} at {'x'.join(map(str, shape))} bf16 ({x.numel():,} input "
+                  f"elements): err {err:.3g} (limit {limit:.3g}) on {planes}; kernel {k_ms:.3f} ms, plain "
+                  f"{p_ms:.3f} ms, bound {b_ms:.4f} ms", flush=True)
+            if i < len(shapes):
+                sums = [t + v for t, v in zip(sums, (k_ms, p_ms, b_ms))]
+            del x, y, want, w, b
+            torch.cuda.empty_cache()
+        print(f"[13] sum of the whole-volume forward's 18 convs, bf16: kernel {sums[0]:.3f} ms, plain {sums[1]:.3f} "
+              f"ms, bound {sums[2]:.4f} ms", flush=True)
+
+        # f32 masks, card vs CPU, for every option at a small size (UNet3D f=8, a 96x96x64 volume)
+        small = SMALL_VOLUME
+        rng = np.random.default_rng(SEED + 13)
+        grid = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in small], indexing="ij"))
+        center = 0.4 * np.asarray(small, dtype=np.float32)
+        ball = (np.sqrt(((grid - center[:, None, None, None]) ** 2).sum(0)) < small[2] / 3).astype(np.float32)
+        src = transforms.ZNormalization().normalize_array((2.0 * ball + rng.normal(0, 0.3, small))[None])
+        sd = random_state_dict(torch, UNet3D(1, 2, 8), SEED + 13)
+        small_patch, small_overlap = (32, 32, 32), (4, 4, 8)
+        runs = []
+        for device in (torch.device("cpu"), dev):
+            m8 = UNet3D(1, 2, 8)
+            m8.load_state_dict(sd)
+            m8.to(device).eval()
+            v8 = sw.prepare_volume(src, device, torch.float32)
+            tta8 = predict.make_forward_fn(ConfigDict(network="unet", tta="flips"), m8)
+
+            def window(model, mode="crop", v=v8, true=None):
+                return sw.sliding_window_predict(model, v, small_patch, small_overlap, 4, overlap_mode=mode,
+                                                 true_spatial=true, sync=False)()
+
+            masks = {
+                "crop": window(m8), "blend=mean_logits": window(m8, "mean_logits"),
+                "blend=average": window(m8, "average"), "tta=flips": window(tta8),
+                "shape_bucket=40": window(m8, v=sw.pad_volume(v8, 40), true=small),
+                "whole_volume": sw.whole_volume_predict(m8, v8, pad_multiple=16, sync=False)(),
+                "whole_volume + shape_bucket=40": sw.whole_volume_predict(m8, v8, pad_multiple=80, sync=False)(),
+            }
+            with torch.inference_mode():
+                tiles = v8[None, :32, :32, :32].contiguous()
+                logits = {"whole volume": m8(v8[None]).cpu(), "tta=flips tile": tta8(tiles).cpu()}
+            runs.append((masks, logits))
+        (cpu_masks, cpu_logits), (gpu_masks, gpu_logits) = runs
+        for name, want in cpu_logits.items():
+            got = gpu_logits[name]
+            scale = max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            check(err <= 1e-3 * scale, f"[13] f32 {name} logits card vs CPU: max|diff| {err} > {1e-3 * scale}")
+            print(f"[13] UNet3D f=8 f32 {name} logits card vs CPU: max|diff| {err:.3g} (logit scale {scale:.3g})",
+                  flush=True)
+        line = []
+        for name, want in cpu_masks.items():
+            got = gpu_masks[name]
+            check(got.shape == want.shape == (1, *small) and got.dtype == want.dtype, f"[13] f32 {name} mask shape")
+            agree = float((got == want).mean())
+            check(agree >= 0.999 and 0 < float(want.mean()) < 1, f"[13] f32 {name} masks card vs CPU: {agree}")
+            line.append(f"{name} {agree:.6f}")
+        print(f"[13] UNet3D f=8 f32 masks on a {'x'.join(map(str, small))} volume, card vs CPU agreement: "
+              + ", ".join(line), flush=True)
+
+        # UNet2D from [10]'s checkpoint: tta=flips:hw, and whole_volume (the warning, then the sliding window)
+        work2d, ckpt2d, one2d, mask2d, batches2d = unet2d_run
+        for extra, want, label in (("config.tta=flips:hw", 4 * 18 * batches2d, "tta=flips:hw"),
+                                   ("config.whole_volume=true", 18 * batches2d, "whole_volume=true")):
+            out_dir = work / f"unet2d_{label}"
+            zero_counters()
+            t0 = time.perf_counter()
+            predict.main(["config=unet2d", f"config.pred_data_path={one2d / 'source'}",
+                          f"config.pred_gt_path={one2d / 'label'}", f"config.output_dir={out_dir}",
+                          f"config.ckpt={ckpt2d}", f"config.patch_size=1, {SLICE}, {SLICE}",
+                          f"config.batch_size={BATCH}", extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counters()
+            check(got["conv2d_bn_relu"] == want and got["conv3d_bn_relu"] == 0, f"[13] unet2d {label}: launches {got}")
+            (run,) = out_dir.glob("predict-*/*")
+            (mask_file,) = (run / "pred_file").glob("pred-*.nii.gz")
+            mask = io.read_volume(mask_file).data
+            check(mask.shape == (1, *VOLUME), f"[13] unet2d {label} mask {mask.shape}")
+            same = bool(np.array_equal(mask, io.read_volume(mask2d).data))
+            if label == "whole_volume=true":
+                check("whole_volume is 3-D only" in (run / "predict.log").read_text(), "[13] the 2-D warning")
+                check(same, "[13] unet2d whole_volume=true: not [10]'s mask")
+            print(f"[13] predict.main config=unet2d {label}: launches conv2d_bn_relu {got['conv2d_bn_relu']} "
+                  f"({want // (18 * batches2d)} x [10]'s), {wall:.3f} s end to end, mask "
+                  f"{'equal to' if same else 'unlike'} [10]'s", flush=True)
+
+        # train.main of [12]'s kind with validation by the whole volume
+        steps = N_VOLUMES * SAMPLES_PER_VOLUME // BATCH
+        base = [
+            "config=unet",
+            f"config.data_path={work / 'data' / 'source'}", f"config.gt_path={work / 'data' / 'label'}",
+            f"config.val_data_path={work / 'data' / 'source'}", f"config.val_gt_path={work / 'data' / 'label'}",
+            f"config.patch_size={PATCH}, {PATCH}, {PATCH}", "config.patch_overlap=" + ", ".join(map(str, OVERLAP)),
+            f"config.batch_size={BATCH}",
+        ]
+        zero_counters()
+        t0 = time.perf_counter()
+        out = train.main(base + [f"config.output_dir={work / 'train_wv'}", f"config.samples_per_volume={SAMPLES_PER_VOLUME}",
+                                 "config.epochs=1", "config.epochs_per_checkpoint=1", "config.val_interval=1",
+                                 "config.whole_volume=true"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counters()
+        check(got["conv3d_bn_relu"] == 18 * steps + 18 * N_VOLUMES and got["conv3d_wgrad"] == 18 * steps,
+              f"[13] train.main whole_volume validation: launches {got}")
+        check(math.isfinite(out["best_val_dice"]), f"[13] validation dice {out['best_val_dice']}")
+        print(f"[13] train.main, {steps} steps and validation by the whole volume: {wall:.1f} s, launches {got}, "
+              f"validation dice {out['best_val_dice']:.4f}", flush=True)
+        del out
+
+        # predict.main with options on [3]'s two volumes
+        for extra, want in ((["config.tta=flips", "config.blend=mean_logits", "config.shape_bucket=32"],
+                             N_VOLUMES * 8 * 18 * batches),
+                            (["config.whole_volume=true"], N_VOLUMES * 18)):
+            out_dir = work / ("pred_" + "_".join(e.split(".", 1)[1] for e in extra))
+            zero_counters()
+            t0 = time.perf_counter()
+            predict.main(base[:1] + base[5:] + [f"config.pred_data_path={work / 'data' / 'source'}",
+                                                f"config.pred_gt_path={work / 'data' / 'label'}",
+                                                f"config.output_dir={out_dir}", f"config.ckpt={ckpt}", *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counters()
+            check(got["conv3d_bn_relu"] == want, f"[13] predict.main {extra}: launches {got}, not {want}")
+            (run,) = out_dir.glob("predict-*/*")
+            rows = (run / "metrics.csv").read_text().splitlines()
+            check(len(rows) == N_VOLUMES + 2 and all(0.0 <= float(v) <= 1.0 for r in rows[1:-1]
+                                                     for v in r.split(",")[:4]), f"[13] metrics.csv {rows}")
+            masks = sorted((run / "pred_file").glob("pred-*.nii.gz"))
+            check(len(masks) == N_VOLUMES and io.read_volume(masks[0]).data.shape == (1, *VOLUME), "[13] masks")
+            print(f"[13] predict.main {' '.join(e.split('.', 1)[1] for e in extra)}: {N_VOLUMES} volumes, launches "
+                  f"conv3d_bn_relu {got['conv3d_bn_relu']}, {wall / N_VOLUMES:.3f} s per volume end to end; "
+                  f"metrics {rows[1:-1]}", flush=True)
+        print(f"[13] predict.main crop ([3], pipelined): {e2e_per_volume:.3f} s per volume end to end; "
+              f"[13] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> None:
@@ -474,8 +790,9 @@ def main() -> None:
         mask = io.read_volume(masks[0]).data
         check(mask.shape == (1, *VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0},
               f"mask {mask.shape} {np.unique(mask)[:5]}")
+        e2e_per_volume = wall / N_VOLUMES
         print(f"[3] predict.main: {N_VOLUMES} volumes, {n_tiles} tiles each, {batches} forward batches, "
-              f"launches {predict_launches}, {wall / N_VOLUMES:.3f} s per volume end to end; "
+              f"launches {predict_launches}, {e2e_per_volume:.3f} s per volume end to end (pipelined); "
               f"metrics {rows[1:]}", flush=True)
 
         # the device part alone: sliding window on an uploaded volume, warm
@@ -873,159 +1190,158 @@ def main() -> None:
 
     # -- 10. train and predict UNet2D through the entry points ---------------
     work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
-    try:
-        write_volumes(work / "data", io)
-        steps = TRAIN_EPOCHS * (N_VOLUMES * SAMPLES_PER_VOLUME // BATCH)
-        patch2d = f"1, {SLICE}, {SLICE}"
-        train_argv = [
-            "config=unet2d",
-            f"config.data_path={work / 'data' / 'source'}",
-            f"config.gt_path={work / 'data' / 'label'}",
-            f"config.output_dir={work / 'train_runs'}",
-            f"config.batch_size={BATCH}",
-            f"config.samples_per_volume={SAMPLES_PER_VOLUME}",
-            f"config.epochs={TRAIN_EPOCHS}",
-            f"config.epochs_per_checkpoint={TRAIN_EPOCHS}",
-        ]
-        torch.cuda.reset_peak_memory_stats()
-        zero_counters()
-        t0 = time.perf_counter()
-        out = train.main(train_argv)
+    atexit.register(shutil.rmtree, work, ignore_errors=True)  # [13] reads this run: it goes at exit, whatever fails
+    write_volumes(work / "data", io)
+    steps = TRAIN_EPOCHS * (N_VOLUMES * SAMPLES_PER_VOLUME // BATCH)
+    patch2d = f"1, {SLICE}, {SLICE}"
+    train_argv = [
+        "config=unet2d",
+        f"config.data_path={work / 'data' / 'source'}",
+        f"config.gt_path={work / 'data' / 'label'}",
+        f"config.output_dir={work / 'train_runs'}",
+        f"config.batch_size={BATCH}",
+        f"config.samples_per_volume={SAMPLES_PER_VOLUME}",
+        f"config.epochs={TRAIN_EPOCHS}",
+        f"config.epochs_per_checkpoint={TRAIN_EPOCHS}",
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    t0 = time.perf_counter()
+    out = train.main(train_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    want_launches = {"conv3d_bn_relu": 0, "conv3d_input_grad": 0, "conv3d_wgrad": 0,
+                     "bce_dice_sums": steps, "bce_dice_grads": steps, "conv2d_bn_relu": 18 * steps,
+                     "conv2d_input_grad": 17 * steps, "conv2d_wgrad": 18 * steps}
+    check(train_launches == want_launches, f"unet2d train launches {train_launches} != {want_launches}")
+    check(isinstance(out["model"], UNet2D), f"config=unet2d trained a {type(out['model']).__name__}")
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    (run,) = (work / "train_runs").glob("train-*/*")
+    losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+              if line.startswith("Loss: ")]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"unet2d train losses {losses}")
+    latest = checkpoint.load_checkpoint(run / "latest_checkpoint.ckpt")
+    check(latest["epoch"] == TRAIN_EPOCHS and latest["opt_state"]["state"], "unet2d latest_checkpoint.ckpt")
+    check((run / f"checkpoint_{TRAIN_EPOCHS:04d}.ckpt").exists(), "unet2d periodic checkpoint")
+    print(f"[10] train.main config=unet2d ({n_params:,} parameters, patch {patch2d}, batch {BATCH}, bf16): "
+          f"{steps} steps in {wall:.1f} s (data included), launches {train_launches}, losses "
+          f"{[round(v, 5) for v in losses]}, dice of the last epoch {out['dice']:.4f}, peak memory "
+          f"{peak_gb:.2f} GiB", flush=True)
+
+    # warm steps through the entry point's train step and slice adapter, as in [7]
+    cfg = compose(train_argv, job_name="train", make_run_dir=False)
+    net, opt = out["model"], out["optimizer"]
+    dataset = make_dataset(cfg, is_train=True, device=dev)
+    reps = 5
+    step_batches = []
+    while len(step_batches) < reps + 2:
+        step_batches.extend(dataset)
+    check(tuple(step_batches[0][0].shape) == (BATCH, 1, SLICE, SLICE, 1), f"batch {step_batches[0][0].shape}")
+    marks = []
+
+    def mark(*_):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    loss_fn = train.make_loss_and_metric(cfg)
+    seen = []  # the logits and mask of the last step's loss
+
+    def marked_loss(pred, gt):
+        result = loss_fn(pred, gt)
+        mark()
+        seen[:] = [pred.detach(), gt]
+        return result
+
+    hooks = [net.register_forward_pre_hook(mark), net.register_forward_hook(mark),
+             opt.register_step_pre_hook(mark), opt.register_step_post_hook(mark)]
+    step = train.make_train_step(models.make_forward(cfg, net), opt, marked_loss)
+    split = np.zeros(4)
+    for rep, (xb, yb) in enumerate(step_batches[:reps + 2]):
+        marks.clear()
+        step(xb, yb)
+        check(len(marks) == 5, f"unet2d train step hooks fired {len(marks)} times, not 5")
+        marks[-1].synchronize()
+        if rep >= 2:  # two warm-up steps
+            split += [marks[k].elapsed_time(marks[k + 1]) for k in range(4)]
+    for h in hooks:
+        h.remove()
+    split /= reps
+    step_ms = split.sum()
+    print(f"[10] warm train step (UNet2D bf16, {BATCH}x{SLICE}^2): {step_ms:.3f} ms, "
+          f"{1e3 * BATCH / step_ms:.1f} samples/s; forward {split[0]:.3f} ms, loss {split[1]:.3f} ms, "
+          f"backward {split[2]:.3f} ms, optimizer {split[3]:.3f} ms", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        train_launches = read_counters()
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        want_launches = {"conv3d_bn_relu": 0, "conv3d_input_grad": 0, "conv3d_wgrad": 0,
-                         "bce_dice_sums": steps, "bce_dice_grads": steps, "conv2d_bn_relu": 18 * steps,
-                         "conv2d_input_grad": 17 * steps, "conv2d_wgrad": 18 * steps}
-        check(train_launches == want_launches, f"unet2d train launches {train_launches} != {want_launches}")
-        check(isinstance(out["model"], UNet2D), f"config=unet2d trained a {type(out['model']).__name__}")
-        n_params = sum(p.numel() for p in out["model"].parameters())
-        (run,) = (work / "train_runs").glob("train-*/*")
-        losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
-                  if line.startswith("Loss: ")]
-        check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"unet2d train losses {losses}")
-        latest = checkpoint.load_checkpoint(run / "latest_checkpoint.ckpt")
-        check(latest["epoch"] == TRAIN_EPOCHS and latest["opt_state"]["state"], "unet2d latest_checkpoint.ckpt")
-        check((run / f"checkpoint_{TRAIN_EPOCHS:04d}.ckpt").exists(), "unet2d periodic checkpoint")
-        print(f"[10] train.main config=unet2d ({n_params:,} parameters, patch {patch2d}, batch {BATCH}, bf16): "
-              f"{steps} steps in {wall:.1f} s (data included), launches {train_launches}, losses "
-              f"{[round(v, 5) for v in losses]}, dice of the last epoch {out['dice']:.4f}, peak memory "
-              f"{peak_gb:.2f} GiB", flush=True)
-
-        # warm steps through the entry point's train step and slice adapter, as in [7]
-        cfg = compose(train_argv, job_name="train", make_run_dir=False)
-        net, opt = out["model"], out["optimizer"]
-        dataset = make_dataset(cfg, is_train=True, device=dev)
-        reps = 5
-        step_batches = []
-        while len(step_batches) < reps + 2:
-            step_batches.extend(dataset)
-        check(tuple(step_batches[0][0].shape) == (BATCH, 1, SLICE, SLICE, 1), f"batch {step_batches[0][0].shape}")
-        marks = []
-
-        def mark(*_):
-            marks.append(torch.cuda.Event(enable_timing=True))
-            marks[-1].record()
-
-        loss_fn = train.make_loss_and_metric(cfg)
-        seen = []  # the logits and mask of the last step's loss
-
-        def marked_loss(pred, gt):
-            result = loss_fn(pred, gt)
-            mark()
-            seen[:] = [pred.detach(), gt]
-            return result
-
-        hooks = [net.register_forward_pre_hook(mark), net.register_forward_hook(mark),
-                 opt.register_step_pre_hook(mark), opt.register_step_post_hook(mark)]
-        step = train.make_train_step(models.make_forward(cfg, net), opt, marked_loss)
-        split = np.zeros(4)
-        for rep, (xb, yb) in enumerate(step_batches[:reps + 2]):
-            marks.clear()
+        t0 = time.perf_counter()
+        for xb, yb in step_batches[:2]:
             step(xb, yb)
-            check(len(marks) == 5, f"unet2d train step hooks fired {len(marks)} times, not 5")
-            marks[-1].synchronize()
-            if rep >= 2:  # two warm-up steps
-                split += [marks[k].elapsed_time(marks[k + 1]) for k in range(4)]
-        for h in hooks:
-            h.remove()
-        split /= reps
-        step_ms = split.sum()
-        print(f"[10] warm train step (UNet2D bf16, {BATCH}x{SLICE}^2): {step_ms:.3f} ms, "
-              f"{1e3 * BATCH / step_ms:.1f} samples/s; forward {split[0]:.3f} ms, loss {split[1]:.3f} ms, "
-              f"backward {split[2]:.3f} ms, optimizer {split[3]:.3f} ms", flush=True)
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for xb, yb in step_batches[:2]:
-                step(xb, yb)
-            torch.cuda.synchronize()
-            window_ms = 1e3 * (time.perf_counter() - t0)
-        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-        if not on_card:
-            print("[10] profile: the profiler recorded no device time (not measured)", flush=True)
-        else:
-            print(f"[10] profile of 2 warm steps: the card busy {busy_ms:.1f} of {window_ms:.1f} ms "
-                  f"({100 * busy_ms / window_ms:.1f}%); per step {sum(e.count for e in on_card) / 2:.0f} kernel "
-                  f"launches and {busy_ms / 2:.3f} ms of device time against the {step_ms:.3f} ms step timed "
-                  f"without the profiler ({50 * busy_ms / step_ms:.1f}%); the 15 largest kernels:", flush=True)
-            for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]:
-                print(f"[10]   {e.self_device_time_total / 2e3:8.3f} ms  x{e.count // 2:<4d} {e.key[:100]}", flush=True)
-        print(f"[10] {loss_path_kernels(torch, loss_op, on_card, loss_fn, *seen)}", flush=True)
-        del opt, out, dataset, step_batches, xb, yb, step, seen
-
-        one = work / "one"
-        for split_dir in ("source", "label"):
-            (one / split_dir).mkdir(parents=True)
-            os.symlink(work / "data" / split_dir / "vol-00.nii.gz", one / split_dir / "vol-00.nii.gz")
-        n_tiles = len(pipeline.grid_locations(VOLUME, (1, SLICE, SLICE), (0, 4, 36)))
-        zero_counters()
-        t0 = time.perf_counter()
-        predict.main([
-            "config=unet2d", f"config.pred_data_path={one / 'source'}", f"config.pred_gt_path={one / 'label'}",
-            f"config.output_dir={work / 'runs'}", f"config.ckpt={run / 'latest_checkpoint.ckpt'}",
-            f"config.batch_size={BATCH}",
-        ])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        predict_launches = read_counters()
-        batches = -(-n_tiles // BATCH)
-        check(predict_launches["conv2d_bn_relu"] == 18 * batches and predict_launches["conv3d_bn_relu"] == 0,
-              f"unet2d predict launches {predict_launches} != 18 x {batches} forward batches")
-        (pred_run,) = (work / "runs").glob("predict-*/*")
-        rows = (pred_run / "metrics.csv").read_text().splitlines()
-        check(rows[0] == "precision,recall,jaccard,dice,hs95" and len(rows) == 3, f"unet2d metrics.csv: {rows}")
-        check(all(0.0 <= float(v) <= 1.0 for v in rows[1].split(",")[:4]), f"unet2d metrics row: {rows[1]}")
-        (mask_file,) = (pred_run / "pred_file").glob("pred-*.nii.gz")
-        mask = io.read_volume(mask_file).data
-        check(mask.shape == (1, *VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0}, f"unet2d mask {mask.shape}")
-        print(f"[10] predict.main config=unet2d from the trained checkpoint: {n_tiles} slices of 1x{SLICE}x{SLICE}, "
-              f"{batches} forward batches, launches {predict_launches}, {wall:.3f} s end to end; metrics {rows[1]}",
-              flush=True)
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if not on_card:
+        print("[10] profile: the profiler recorded no device time (not measured)", flush=True)
+    else:
+        print(f"[10] profile of 2 warm steps: the card busy {busy_ms:.1f} of {window_ms:.1f} ms "
+              f"({100 * busy_ms / window_ms:.1f}%); per step {sum(e.count for e in on_card) / 2:.0f} kernel "
+              f"launches and {busy_ms / 2:.3f} ms of device time against the {step_ms:.3f} ms step timed "
+              f"without the profiler ({50 * busy_ms / step_ms:.1f}%); the 15 largest kernels:", flush=True)
+        for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]:
+            print(f"[10]   {e.self_device_time_total / 2e3:8.3f} ms  x{e.count // 2:<4d} {e.key[:100]}", flush=True)
+    print(f"[10] {loss_path_kernels(torch, loss_op, on_card, loss_fn, *seen)}", flush=True)
+    del opt, out, dataset, step_batches, xb, yb, step, seen
 
-        # the device part alone: the sliding window over the uploaded volume, warm
-        net.eval()
-        subject = pipeline.load_subject((one / "source" / "vol-00.nii.gz", one / "label" / "vol-00.nii.gz"))
-        vol = sw.prepare_volume(transforms.ZNormalization().normalize_array(subject.source.data), dev, net.dtype)
-        fwd2d = models.make_forward(cfg, net)
+    one = work / "one"
+    for split_dir in ("source", "label"):
+        (one / split_dir).mkdir(parents=True)
+        os.symlink(work / "data" / split_dir / "vol-00.nii.gz", one / split_dir / "vol-00.nii.gz")
+    n_tiles = len(pipeline.grid_locations(VOLUME, (1, SLICE, SLICE), (0, 4, 36)))
+    zero_counters()
+    t0 = time.perf_counter()
+    predict.main([
+        "config=unet2d", f"config.pred_data_path={one / 'source'}", f"config.pred_gt_path={one / 'label'}",
+        f"config.output_dir={work / 'runs'}", f"config.ckpt={run / 'latest_checkpoint.ckpt'}",
+        f"config.batch_size={BATCH}",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    predict_launches = read_counters()
+    batches = -(-n_tiles // BATCH)
+    check(predict_launches["conv2d_bn_relu"] == 18 * batches and predict_launches["conv3d_bn_relu"] == 0,
+          f"unet2d predict launches {predict_launches} != 18 x {batches} forward batches")
+    (pred_run,) = (work / "runs").glob("predict-*/*")
+    rows = (pred_run / "metrics.csv").read_text().splitlines()
+    check(rows[0] == "precision,recall,jaccard,dice,hs95" and len(rows) == 3, f"unet2d metrics.csv: {rows}")
+    check(all(0.0 <= float(v) <= 1.0 for v in rows[1].split(",")[:4]), f"unet2d metrics row: {rows[1]}")
+    (mask_file,) = (pred_run / "pred_file").glob("pred-*.nii.gz")
+    mask = io.read_volume(mask_file).data
+    check(mask.shape == (1, *VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0}, f"unet2d mask {mask.shape}")
+    print(f"[10] predict.main config=unet2d from the trained checkpoint: {n_tiles} slices of 1x{SLICE}x{SLICE}, "
+          f"{batches} forward batches, launches {predict_launches}, {wall:.3f} s end to end; metrics {rows[1]}",
+          flush=True)
+
+    # the device part alone: the sliding window over the uploaded volume, warm
+    net.eval()
+    subject = pipeline.load_subject((one / "source" / "vol-00.nii.gz", one / "label" / "vol-00.nii.gz"))
+    vol = sw.prepare_volume(transforms.ZNormalization().normalize_array(subject.source.data), dev, net.dtype)
+    fwd2d = models.make_forward(cfg, net)
+    sw.sliding_window_predict(fwd2d, vol, (1, SLICE, SLICE), (0, 4, 36), BATCH)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         sw.sliding_window_predict(fwd2d, vol, (1, SLICE, SLICE), (0, 4, 36), BATCH)
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sw.sliding_window_predict(fwd2d, vol, (1, SLICE, SLICE), (0, 4, 36), BATCH)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        print(f"[10] UNet2D sliding window on the card, one volume: {', '.join(f'{t:.4f}' for t in times)} s",
-              flush=True)
-        del net, vol, fwd2d
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"[10] UNet2D sliding window on the card, one volume: {', '.join(f'{t:.4f}' for t in times)} s",
+          flush=True)
+    del net, vol, fwd2d
+    unet2d_run = (work, run / "latest_checkpoint.ckpt", one, mask_file, batches)  # [13] reads it
 
     # -- 11. UNet2D on the card vs the CPU, f32: eval logits and a train step --
     cfg2d = ConfigDict(network="unet2d", out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
@@ -1244,6 +1560,9 @@ def main() -> None:
           f"{worst_max:.3g} of the tensor's largest entry), conv biases {bias_worst:.3g}; weights max|diff| "
           f"{diffs.abs().max().item():.3g} (lr {lr:g}), {100 * flipped:.3f}% of them more than 1e-3 lr apart, "
           f"{unexplained:.3g} beyond what the two gradients' AdamW steps give; EMA max|diff| {ema_diff:.3g}", flush=True)
+
+    # -- 13. the predict options at full width, and their cost ---------------
+    predict_options(torch, dev, card, zero_counters, read_counters, unet2d_run, e2e_per_volume)
 
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",

@@ -17,7 +17,9 @@ asynchronous host pipeline:
                          accelerator; ours overlaps host I/O with device
                          compute and emits channels-last NDHWC batches;
 * ``grid_locations``   — tio.inference.GridSampler location grid
-                         (reference predict.py:100).
+                         (reference predict.py:100);
+* ``GridAggregator``   — tio.inference.GridAggregator's crop and average
+                         overlap modes (reference predict.py:117-118).
 """
 
 from __future__ import annotations
@@ -284,3 +286,57 @@ def grid_locations(
                 )
     return np.asarray(locations, dtype=np.int32)
 
+
+class GridAggregator:
+    """Overlap aggregation matching tio.inference.GridAggregator.
+
+    ``overlap_mode='crop'`` (the reference's default at predict.py:117-118):
+    each patch is cropped by half the overlap on every side before being
+    written, except where it touches the volume border. ``'average'`` mode
+    accumulates values + counts and divides at the end.
+    """
+
+    def __init__(
+        self,
+        spatial_shape: Sequence[int],
+        patch_overlap: Sequence[int],
+        overlap_mode: str = "crop",
+        num_channels: int = 1,
+        dtype=np.float32,
+    ):
+        self.spatial_shape = tuple(spatial_shape)
+        self.patch_overlap = tuple(patch_overlap)
+        self.overlap_mode = overlap_mode
+        self.output = np.zeros((num_channels,) + self.spatial_shape, dtype=dtype)
+        if overlap_mode == "average":
+            self.counts = np.zeros(self.spatial_shape, dtype=np.float32)
+
+    def add_batch(self, patches: np.ndarray, locations: np.ndarray) -> None:
+        """patches: [B, C, pX, pY, pZ]; locations: [B, 6]."""
+        half = [o // 2 for o in self.patch_overlap]
+        for patch, loc in zip(patches, locations):
+            i0, j0, k0, i1, j1, k1 = (int(v) for v in loc)
+            if self.overlap_mode == "average":
+                self.output[:, i0:i1, j0:j1, k0:k1] += patch
+                self.counts[i0:i1, j0:j1, k0:k1] += 1.0
+                continue
+            # crop mode: trim half-overlap per side unless at the border
+            crops = []
+            for d, (lo, hi, size) in enumerate(
+                ((i0, i1, self.spatial_shape[0]), (j0, j1, self.spatial_shape[1]), (k0, k1, self.spatial_shape[2]))
+            ):
+                c_lo = 0 if lo == 0 else half[d]
+                c_hi = 0 if hi == size else half[d]
+                crops.append((c_lo, c_hi))
+            (ci0, ci1), (cj0, cj1), (ck0, ck1) = crops
+            pi1 = patch.shape[1] - ci1
+            pj1 = patch.shape[2] - cj1
+            pk1 = patch.shape[3] - ck1
+            self.output[
+                :, i0 + ci0 : i1 - ci1, j0 + cj0 : j1 - cj1, k0 + ck0 : k1 - ck1
+            ] = patch[:, ci0:pi1, cj0:pj1, ck0:pk1]
+
+    def get_output_tensor(self) -> np.ndarray:
+        if self.overlap_mode == "average":
+            return self.output / np.maximum(self.counts, 1.0)[None]
+        return self.output

@@ -24,6 +24,23 @@ def is_2d(network: str) -> bool:
     return network in TWO_D_NETWORKS
 
 
+# Total spatial downsampling factor per 3-D network: whole-volume
+# inference pads each spatial dim to this multiple so every pool/merge
+# divides cleanly (and the decoder's upsamples line back up with skips).
+# The JAX package's table, models/registry.py there.
+_PAD_MULTIPLE = {
+    "vtnet": 32,  # k4s4 embed x 3 PatchMergings (H/W); windows self-pad
+    "unetr": 16,  # k16s16 patch embed
+    "highresnet": 1,  # fully dilated, no downsampling
+}
+
+
+def pad_multiple(network: str) -> int:
+    """Spatial-dim multiple required for a clean whole-volume forward
+    (default 16 = four stride-2 stages, the U-Net family)."""
+    return _PAD_MULTIPLE.get(network, 16)
+
+
 def make_forward(config, model: nn.Module) -> Callable:
     """``x [B, D, H, W, C] -> logits [B, D, H, W, classes]``: the model
     itself, or for a 2-D network the slice adapter, which runs it on

@@ -16,8 +16,8 @@ StepLR (or cosine / poly) schedule with warmup; ``loss`` bce | dice | focal
 | bce+dice, and softmax cross entropy on integer labels when
 ``out_classes > 2`` (``make_loss_and_metric``); ``grad_accum``
 microbatches per optimizer step; ``ema_decay`` (``ema_checkpoint.ckpt``);
-``val_interval`` validation by the sliding window with a
-``best_checkpoint.ckpt``; ``remat`` / ``remat_policy`` (UNet3D); bf16
+``val_interval`` validation (the sliding window, or ``whole_volume``, under
+``tta``) with a ``best_checkpoint.ckpt``; ``remat`` / ``remat_policy`` (UNet3D); bf16
 compute with f32 parameters (``precision``); ``data_backend=device``;
 per-step loss/dice to TensorBoard; the latest checkpoint every epoch and
 ``checkpoint_%04d.ckpt`` every ``epochs_per_checkpoint``; resume with
@@ -214,31 +214,39 @@ def _warn_accum_semantics(config, accum: int) -> None:
 
 
 def evaluate(config, model: torch.nn.Module, device: torch.device, logger) -> float:
-    """Validation: the mean dice of the crop-mode sliding window over the
-    volumes of ``config.val_data_path`` / ``val_gt_path`` (eval mode, so
-    every ConvBlock is one BatchNorm-folded conv kernel), as the JAX
-    ``evaluate``. Leaves ``model`` in train mode."""
+    """Validation: the mean dice over the volumes of ``config.val_data_path``
+    / ``val_gt_path`` in eval mode (every ConvBlock one BatchNorm-folded conv
+    kernel), as the JAX ``evaluate``: the crop-mode sliding window, or for a
+    3-D network with ``whole_volume`` one forward over the volume padded to
+    ``pad_multiple`` (a 2-D network ignores it), through the forward of
+    ``predict.make_forward_fn`` (``tta`` included). Leaves ``model`` in
+    train mode."""
     from .data.pipeline import load_subject
     from .data.transforms import ZNormalization
     from .metrics import multiclass_seg_metrics, seg_metrics
-    from .ops.sliding_window import prepare_volume, sliding_window_predict
-    from .predict import overlap_of
+    from .models import is_2d, pad_multiple
+    from .ops.sliding_window import prepare_volume, sliding_window_predict, whole_volume_predict
+    from .predict import make_forward_fn, overlap_of
 
     pairs = list(zip(sorted(Path(config.val_data_path).glob("*.nii.gz")),
                      sorted(Path(config.val_gt_path).glob("*.nii.gz"))))
     if not pairs:
         logger.warning(f"no validation volumes under {config.val_data_path}")
         return float("nan")
-    forward, znorm, dices = make_forward(config, model), ZNormalization(), []
+    forward, znorm, dices = make_forward_fn(config, model), ZNormalization(), []
+    whole = bool(getattr(config, "whole_volume", False)) and not is_2d(config.network)
     model.eval()
     try:
         for pair in pairs:
             subject = load_subject(pair)
             vol = prepare_volume(znorm.normalize_array(subject.source.data), device, model.dtype)
-            mask = sliding_window_predict(
-                forward, vol, config.patch_size, overlap_of(config), int(config.batch_size)
-            )
-            pred = mask.cpu().numpy()[None].astype(np.int32)
+            if whole:
+                fetch = whole_volume_predict(forward, vol, pad_multiple=pad_multiple(config.network), sync=False)
+            else:
+                fetch = sliding_window_predict(
+                    forward, vol, config.patch_size, overlap_of(config), int(config.batch_size), sync=False
+                )
+            pred = fetch()
             if int(config.out_classes) > 2:
                 _, dice = multiclass_seg_metrics(subject.gt.data, pred, int(config.out_classes))
             else:
@@ -260,10 +268,6 @@ def train(config, model=None, logger=None) -> Dict[str, Any]:
     refuse_unported_keys(config)
     val_interval = int(getattr(config, "val_interval", 0) or 0)
     validate = bool(val_interval and getattr(config, "val_data_path", None))
-    if validate:
-        from .predict import refuse_unported_keys as refuse_unported_predict_keys
-
-        refuse_unported_predict_keys(config, keys=("whole_volume",))  # what the JAX evaluate reads
     if model is None:
         model = build_model(config)
     if logger is None:

@@ -74,6 +74,25 @@ def test_znormalization_and_nifti_round_trip_match_jax(tmp_path):
     np.testing.assert_array_equal(back.affine, affine)
 
 
+@pytest.mark.parametrize("mode", ["crop", "average"])
+def test_grid_aggregator_matches_jax(mode):
+    """Tiles of a 13x11x9 grid (patch 6,5,4, overlap 2,1,2) added in two
+    batches: the same output, dtype and all, in both overlap modes."""
+    spatial, patch, overlap = (13, 11, 9), (6, 5, 4), (2, 1, 2)
+    locations = port_pipeline.grid_locations(spatial, patch, overlap)
+    np.testing.assert_array_equal(locations, jax_pipeline.grid_locations(spatial, patch, overlap))
+    tiles = np.random.default_rng(5).integers(0, 3, size=(len(locations), 2, *patch)).astype(np.int32)
+    outputs = []
+    for module in (port_pipeline, jax_pipeline):
+        agg = module.GridAggregator(spatial, overlap, overlap_mode=mode, num_channels=2, dtype=np.int32)
+        for b in (slice(0, 7), slice(7, None)):
+            agg.add_batch(tiles[b], locations[b])
+        outputs.append(agg.get_output_tensor())
+    got, want = outputs
+    assert got.dtype == want.dtype and got.shape == want.shape == (2, *spatial)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_logging_copies_work_without_tensorboard_writes(tmp_path):
     meter = AverageMeter()
     meter.update(2.0, 3)

@@ -1,6 +1,7 @@
 """The port runs without JAX: imported with ``jax``, ``flax`` and the JAX
 package itself blocked, it still builds UNet3D and UNet2D and runs a
-forward and a train step of each on the CPU, and train steps with the
+forward and a train step of each on the CPU, the sliding window and the
+whole-volume forward under tta (and the mean-logits blend), and train steps with the
 options of ``train.py`` (adamw with a clip, grad_accum, EMA, remat, focal
 and multiclass losses, sgd); no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
@@ -25,6 +26,7 @@ sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["{JAX_PACKAGE}"] = None
 import importlib, pkgutil
+import numpy as np
 import torch
 import {PORT}
 for m in pkgutil.walk_packages({PORT}.__path__, "{PORT}."):
@@ -38,6 +40,15 @@ with torch.inference_mode():
 assert y.shape == (1, 16, 16, 16, 2) and y.dtype == torch.float32 and torch.isfinite(y).all()
 mask = sliding_window_predict(model, torch.randn(20, 16, 18, 1), (16, 16, 16), (4, 4, 4), 2)
 assert mask.shape == (20, 16, 18) and mask.dtype == torch.int8
+from {PORT}.config import ConfigDict
+from {PORT}.ops.sliding_window import whole_volume_predict
+from {PORT}.predict import make_forward_fn
+tta = make_forward_fn(ConfigDict(network="unet", tta="flips"), model)
+mask = sliding_window_predict(tta, torch.randn(20, 16, 24, 1), (16, 16, 16), (4, 4, 4), 2, overlap_mode="mean_logits",
+                              sync=False)()
+assert mask.shape == (1, 20, 16, 24) and mask.dtype == np.int32
+mask = whole_volume_predict(tta, torch.randn(20, 16, 18, 1), pad_multiple=16, sync=False)()
+assert mask.shape == (1, 20, 16, 18) and mask.dtype == np.int32
 from {PORT}.config import ConfigDict
 from {PORT}.train import make_loss_and_metric, make_optimizer, make_train_step
 cfg = ConfigDict(out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)

@@ -1,10 +1,13 @@
 """The training options of the port's ``train.main`` beyond the default
 path, on the CPU at f32, UNet3D at init_features=4 on 16^3 patches of the
 32^3 synthetic volumes: validation with its best checkpoint (the dice it
-logs is the dice ``predict`` computes for the same weights), the EMA
+logs is the dice ``predict`` computes for the same weights; with
+``whole_volume`` and ``tta`` the JAX ``evaluate``'s dice), the EMA
 checkpoint (predict-only, resumed with the run), ``profile_dir``,
 ``jax_debug_nans`` and multiclass training. ``remat`` is in
 ``test_torch_port_remat.py``."""
+
+import logging
 
 import numpy as np
 import pytest
@@ -13,13 +16,16 @@ from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torc
 
 pytest.importorskip("flax")  # the JAX package makes the random weights: without it the file skips
 
+from general_medical_image_segmentation_cnn_framework_tpu import train as jax_train
+from general_medical_image_segmentation_cnn_framework_tpu.config import compose as jax_compose
+
 from general_medical_image_segmentation_cnn_framework_tpu_torch import predict as port_predict
 from general_medical_image_segmentation_cnn_framework_tpu_torch import train as port_train
 from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint import (
     load_checkpoint,
     restore_training_state,
 )
-from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict
+from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
 from test_torch_port_unet3d import jax_unet, port_unet
 
@@ -65,7 +71,9 @@ def test_validation_best_and_ema_checkpoints(synthetic_dataset, tmp_path, seeded
     optimizer state; ``ema_checkpoint.ckpt`` holds the EMA parameters with
     the run's BatchNorm statistics, predict reads it and a resume refuses it
     as predict-only; a resume from the latest file restores the EMA from the
-    run's EMA file."""
+    run's EMA file; validation with ``whole_volume=true`` and ``tta`` gives
+    the JAX ``evaluate``'s dice for the same weights, and runs in
+    ``train.main``."""
     options = ["config.optimizer=adamw", "config.weight_decay=0.01", "config.grad_clip=1.0", "config.grad_accum=2",
                "config.loss=focal", "config.remat=true", "config.remat_policy=conv", "config.ema_decay=0.9",
                "config.val_interval=1", "config.init_lr=1e-4", "config.epochs=1"]
@@ -104,8 +112,17 @@ def test_validation_best_and_ema_checkpoints(synthetic_dataset, tmp_path, seeded
     assert f"resumed EMA weights from {run / 'ema_checkpoint.ckpt'}" in (run2 / "train.log").read_text()
     assert load_checkpoint(run2 / "ema_checkpoint.ckpt")["epoch"] == 2 and resumed["epoch"] == 2
 
-    with pytest.raises(NotImplementedError, match="whole_volume=True.*item 6"):
-        port_train.main(_args(synthetic_dataset, tmp_path / "wv", "config.val_interval=1", "config.whole_volume=true"))
+    # validation with whole_volume=true under tta: one forward a flip and volume, the dice of the JAX
+    # evaluate on the same weights
+    wv_args = _args(synthetic_dataset, tmp_path / "wv", "config.val_interval=1", "config.whole_volume=true",
+                    "config.tta=flips:d", "config.epochs=1")
+    jax_model, variables = jax_unet(4, seed=17)  # masks near the balls: dice 0.81, 0.73 without tta
+    want = jax_train.evaluate(jax_compose(wv_args, job_name="train", make_run_dir=False), jax_model,
+                              variables["params"], variables["batch_stats"], logging.getLogger("validation"))
+    got = port_train.evaluate(compose(wv_args, job_name="train", make_run_dir=False),
+                              port_unet(variables, 4), torch.device("cpu"), logging.getLogger("validation"))
+    assert 0.0 < got < 1.0 and got == pytest.approx(want, rel=1e-12)
+    assert np.isfinite(port_train.main(wv_args)["best_val_dice"])
 
 
 def test_multiclass_training_validates_with_the_multiclass_metrics(synthetic_dataset, tmp_path, seeded_unet):
