@@ -138,7 +138,26 @@ each of which stops the run with a non-zero exit when it fails:
    ``tta=flips blend=mean_logits shape_bucket=32`` and with
    ``whole_volume=true`` on [3]'s two volumes, end to end.
 
-Phases [3], [7], [10], [12] and [13]'s train and predict runs are the main paths:
+14. Serving at ``config=unet``'s full width (f=32, bf16, patch 64^3, overlap
+   4,4,36, batch 16) on [3]'s volumes and checkpoint (the same seeds):
+   ``serving.main`` with ``serve_once=true`` over a watch directory of the
+   two volumes (in-process): its masks equal [3]'s ``predict.main`` masks
+   byte for byte, 126 ``conv3d_bn_relu`` launches a volume and no 2-D one,
+   each volume's time split into read, predict and write; a second
+   ``serve_once`` over the same run directory returns {} and launches
+   nothing. A warm ``Predictor``: ``predict_prepared`` (the card and the
+   fetch) and ``prepare`` per volume, crop and whole volume (126 and 18
+   launches). The export of both programs at 256x256x128 through
+   ``serving.main``'s export mode (time, bytes, no launch), then both
+   artifacts loaded and run in one subprocess that blocks the port's
+   ``models`` and ``nn`` packages (and JAX): its masks equal the
+   Predictor's, its own launch counts are 126 and 18. A UNet2D
+   ``Predictor`` from [10]'s checkpoint gives [10]'s mask with 864
+   ``conv2d_bn_relu`` launches. Then the eval conv through its registered
+   operator against the direct call (eager predict's), alternated: host
+   microseconds per call, and UNet2D's sliding window on the card.
+
+Phases [3], [7], [10], [12], [13] and [14]'s train, predict and serve runs are the main paths:
 every launch counter is set to 0 just before each and read just after; a
 kernel's ``launches`` in the kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
@@ -633,6 +652,218 @@ def predict_options(torch, dev, card, zero_counters, read_counters, unet2d_run, 
         shutil.rmtree(work, ignore_errors=True)
 
 
+_BLOCKED_LOAD = f"""
+import json, sys, time
+for name in ("jax", "flax", "{JAX_SRC}", "{PORT}.models", "{PORT}.nn"):
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from {PORT}.ops import conv3d_bn_relu as conv
+from {PORT}.serving import load_exported_predictor
+params, volume = torch.load(sys.argv[2]), np.load(sys.argv[3])
+result = {{}}
+for artifact, out in zip(sys.argv[4::2], sys.argv[5::2]):
+    t0 = time.perf_counter()
+    predict = load_exported_predictor(artifact)
+    load_s, launches, times = time.perf_counter() - t0, [], []
+    for _ in range(3):
+        conv.conv3d_bn_relu.launches = 0
+        t0 = time.perf_counter()
+        mask = predict(params, volume)
+        times.append(time.perf_counter() - t0)
+        launches.append(conv.conv3d_bn_relu.launches)
+    np.save(out, mask)
+    result[artifact] = {{"load_s": load_s, "s": times, "launches": launches}}
+blocked = [m for m in sys.modules if sys.modules[m] is not None
+           and (m.split(".")[0] in ("jax", "flax", "{JAX_SRC}") or m.startswith(("{PORT}.models", "{PORT}.nn")))]
+assert not blocked, blocked
+print(json.dumps(result))
+"""
+
+
+def serving_phase(torch, card, zero_counters, read_counters, unet2d_run, predict_masks):
+    """Phase [14]: serving at full width (see the module docstring)."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, serving
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, transforms
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn import blocks
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import sliding_window as sw
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    read, write, predict_array = serving.read_volume, serving.write_volume, serving.Predictor.predict_array
+    direct2d = blocks.conv2d_bn_relu
+    try:
+        write_volumes(work / "data", io)  # [3]'s volumes and checkpoint: the same seeds
+        ckpt = work / "unet3d.pt"
+        checkpoint.save_checkpoint(ckpt, random_state_dict(torch, UNet3D(1, 2, 32), SEED), epoch=0)
+        watch = work / "data" / "source"
+        argv = ["config=unet", f"config.ckpt={ckpt}", f"config.output_dir={work / 'serve'}",
+                f"config.patch_size={PATCH}, {PATCH}, {PATCH}", "config.patch_overlap=" + ", ".join(map(str, OVERLAP)),
+                f"config.batch_size={BATCH}", "config.precision=bfloat16"]
+        per_batch = 18 * -(-len(sw.grid_locations(VOLUME, (PATCH,) * 3, OVERLAP)) // BATCH)
+
+        # serving.main, serve_once over the watch directory, each volume's time split by timed wrappers
+        split = {"read": [], "predict": [], "write": []}
+
+        def timed(key, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                split[key].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        serving.read_volume, serving.write_volume = timed("read", read), timed("write", write)
+        serving.Predictor.predict_array = timed("predict", predict_array)
+        zero_counters()
+        t0 = time.perf_counter()
+        done = serving.main([*argv, f"config.watch_dir={watch}", "config.serve_once=true"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counters()
+        serving.read_volume, serving.write_volume, serving.Predictor.predict_array = read, write, predict_array
+        names = [f"vol-{i:02d}.nii.gz" for i in range(N_VOLUMES)]
+        check(sorted(done) == names, f"[14] serve_once returned {done}")
+        check(got["conv3d_bn_relu"] == N_VOLUMES * per_batch and got["conv2d_bn_relu"] == 0,
+              f"[14] serve_once launches {got}, not {per_batch} a volume")
+        for name, want in zip(names, predict_masks):
+            served, batch = io.read_volume(done[name]), io.read_volume(want)
+            check(served.data.tobytes() == batch.data.tobytes() and np.array_equal(served.affine, batch.affine),
+                  f"[14] the served mask of {name} differs from predict.main's {want.name}")
+        print(f"[14] {card}: serving.main serve_once, {N_VOLUMES} volumes {VOLUME}: {wall:.3f} s, launches "
+              f"conv3d_bn_relu {got['conv3d_bn_relu']} ({per_batch} a volume), conv2d_bn_relu {got['conv2d_bn_relu']}; "
+              f"masks equal to predict.main's byte for byte; per volume read "
+              f"{', '.join(f'{v:.3f}' for v in split['read'])} s, predict (z-normalise, upload, card, fetch) "
+              f"{', '.join(f'{v:.3f}' for v in split['predict'])} s, write "
+              f"{', '.join(f'{v:.3f}' for v in split['write'])} s", flush=True)
+        cfg = compose([*argv, f"config.watch_dir={watch}"], job_name="serve", make_run_dir=False)
+        cfg.hydra_path = str(Path(done[names[0]]).parents[1])  # the first run's directory: a restart
+        zero_counters()
+        again = serving.serve(cfg, once=True)
+        got = read_counters()
+        check(again == {} and not any(got.values()), f"[14] the second serve_once returned {again}, launches {got}")
+        print("[14] a second serve_once over the same directory: {} and no launch", flush=True)
+
+        # warm Predictor: the host's preparation and the device part (with the fetch), crop and whole volume
+        src = io.read_volume(watch / names[0]).data
+        predictors, masks = {}, {}
+        for mode, extra, want in (("crop", [], per_batch), ("whole_volume", ["config.whole_volume=true"], 18)):
+            predictor = serving.Predictor(compose([*argv, *extra], job_name="serve", make_run_dir=False))
+            vol, shape = predictor.prepare(src)
+            predictor.predict_prepared(vol, shape)
+            prep, times = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vol, shape = predictor.prepare(src)
+                torch.cuda.synchronize()
+                prep.append(time.perf_counter() - t0)
+                before = conv.conv3d_bn_relu.launches
+                t0 = time.perf_counter()
+                masks[mode] = predictor.predict_prepared(vol, shape)
+                times.append(time.perf_counter() - t0)
+                check(conv.conv3d_bn_relu.launches - before == want, f"[14] Predictor {mode}: launches")
+            predictors[mode] = predictor
+            print(f"[14] {card}: warm Predictor, {mode}: predict_prepared (card and int32 fetch) "
+                  f"{', '.join(f'{v:.4f}' for v in times)} s a volume, {want} conv3d_bn_relu launches; prepare "
+                  f"(z-normalise, pad, upload) {', '.join(f'{v:.4f}' for v in prep)} s", flush=True)
+        check(np.array_equal(masks["crop"], io.read_volume(predict_masks[0]).data.astype(np.int32)),
+              "[14] the Predictor's crop mask differs from predict.main's")
+        del vol
+
+        # the exports through serving.main's export mode, then both artifacts loaded in one process that
+        # blocks the port's models and nn packages (and JAX), which reports its own launch counts
+        artifacts = {}
+        for mode, extra in (("crop", []), ("whole_volume", ["config.whole_volume=true"])):
+            artifacts[mode] = work / f"{mode}.pt2"
+            zero_counters()
+            t0 = time.perf_counter()
+            serving.main([*argv, *extra, f"config.export_path={artifacts[mode]}", "config.export_spatial="
+                          + ", ".join(map(str, VOLUME))])
+            dt = time.perf_counter() - t0
+            check(not any(read_counters().values()), f"[14] the {mode} export launched a kernel")
+            print(f"[14] {card}: export of the {mode} program at {VOLUME} through serving.main: {dt:.1f} s "
+                  f"(model build and weights included), artifact {artifacts[mode].stat().st_size:,} bytes", flush=True)
+        torch.save(checkpoint.load_checkpoint(ckpt)["params"], work / "params.pt")
+        np.save(work / "volume.npy", transforms.ZNormalization().normalize_array(src))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _BLOCKED_LOAD, str(ROOT), str(work / "params.pt"), str(work / "volume.npy"),
+             *(v for mode, path in artifacts.items() for v in (str(path), str(work / f"{mode}.npy")))],
+            capture_output=True, text=True, timeout=600,
+        )
+        check(proc.returncode == 0, f"[14] the artifacts' process failed: {proc.stderr[-3000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        for mode, path in artifacts.items():
+            r, want = result[str(path)], per_batch if mode == "crop" else 18
+            check(r["launches"] == [want] * 3, f"[14] the {mode} artifact launched {r['launches']}, not {want}")
+            check(np.array_equal(np.load(work / f"{mode}.npy"), masks[mode]),
+                  f"[14] the {mode} artifact's mask differs from the Predictor's")
+            print(f"[14] {card}: the {mode} artifact in a process without the port's models and nn: load "
+                  f"{r['load_s']:.1f} s, {', '.join(f'{v:.4f}' for v in r['s'])} s a volume (host z-normalised "
+                  f"volume in, int32 mask out), conv3d_bn_relu launches {r['launches']} (its own count), mask "
+                  f"equal to the Predictor's", flush=True)
+        print(f"[14] the artifacts' process took {time.perf_counter() - t0:.1f} s", flush=True)
+        del predictors, masks
+
+        # UNet2D: a Predictor from [10]'s checkpoint gives [10]'s mask
+        _, ckpt2d, one2d, mask2d, batches2d = unet2d_run
+        predictor = serving.Predictor(compose(["config=unet2d", f"config.ckpt={ckpt2d}", f"config.batch_size={BATCH}",
+                                               f"config.output_dir={work / 'serve2d'}"], job_name="serve",
+                                              make_run_dir=False))
+        zero_counters()
+        mask = predictor.predict_file(one2d / "source" / "vol-00.nii.gz")
+        got = read_counters()
+        check(got["conv2d_bn_relu"] == 18 * batches2d and got["conv3d_bn_relu"] == 0,
+              f"[14] UNet2D Predictor launches {got}, not {18 * batches2d}")
+        check(np.array_equal(mask.astype(np.float32), io.read_volume(mask2d).data), "[14] UNet2D: not [10]'s mask")
+        print(f"[14] UNet2D Predictor from [10]'s checkpoint: [10]'s mask, conv2d_bn_relu launches "
+              f"{got['conv2d_bn_relu']}", flush=True)
+
+        # the registered operator against the direct call: host time per call, and UNet2D's sliding window
+        def through_operator(x, w, b, relu=True):
+            conv._check(x, w, b, x.dim() - 2)
+            return conv._REGISTERED[x.dim() - 2](x, w, b, relu)
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        x = torch.randn((1, 4, 4, 4, 32), device="cuda", generator=gen, dtype=torch.bfloat16)
+        w = torch.randn((3, 3, 3, 32, 32), device="cuda", generator=gen, dtype=torch.bfloat16) * 0.05
+        b = torch.randn(32, device="cuda", generator=gen)
+        host = {"operator": [], "direct": []}
+        for variant in ("operator", "direct", "direct", "operator"):
+            fn = through_operator if variant == "operator" else conv.conv3d_bn_relu
+            host[variant].append(wrapper_and_host(torch, lambda: fn(x, w, b), calls=500)[1])
+        vol2d, _ = predictor.prepare(io.read_volume(one2d / "source" / "vol-00.nii.gz").data)
+        patch2d = tuple(predictor.config.patch_size)
+        window = {"operator": [], "direct": []}
+        sw.sliding_window_predict(predictor.forward, vol2d, patch2d, predictor.overlap, BATCH)
+        for pair in range(10):  # alternated pairs, each side first in turn
+            for variant in (("operator", "direct") if pair % 2 == 0 else ("direct", "operator")):
+                blocks.conv2d_bn_relu = through_operator if variant == "operator" else direct2d
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sw.sliding_window_predict(predictor.forward, vol2d, patch2d, predictor.overlap, BATCH)
+                torch.cuda.synchronize()
+                window[variant].append(time.perf_counter() - t0)
+        blocks.conv2d_bn_relu = direct2d
+        wins = sum(o > d for o, d in zip(window["operator"], window["direct"]))
+        print(f"[14] {card}: eval conv through the registered operator vs called directly (eager predict calls it "
+              f"directly): host us per call at 1x4^3x32 bf16 (500 calls, alternated) operator "
+              f"{', '.join(f'{v:.1f}' for v in host['operator'])}, direct {', '.join(f'{v:.1f}' for v in host['direct'])}; "
+              f"UNet2D sliding window on the card ({18 * batches2d} convs a volume), 10 alternated pairs: operator "
+              f"{', '.join(f'{v:.4f}' for v in window['operator'])} s (median {np.median(window['operator']):.4f}), "
+              f"direct {', '.join(f'{v:.4f}' for v in window['direct'])} s (median "
+              f"{np.median(window['direct']):.4f}); the direct call faster in {wins} of 10 pairs", flush=True)
+        print(f"[14] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        serving.read_volume, serving.write_volume, serving.Predictor.predict_array = read, write, predict_array
+        blocks.conv2d_bn_relu = direct2d
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -791,6 +1022,9 @@ def main() -> None:
         check(mask.shape == (1, *VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0},
               f"mask {mask.shape} {np.unique(mask)[:5]}")
         e2e_per_volume = wall / N_VOLUMES
+        kept = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+        atexit.register(shutil.rmtree, kept, ignore_errors=True)  # [14] compares the served masks with these
+        predict_masks = [Path(shutil.copy(m, kept / m.name)) for m in masks]
         print(f"[3] predict.main: {N_VOLUMES} volumes, {n_tiles} tiles each, {batches} forward batches, "
               f"launches {predict_launches}, {e2e_per_volume:.3f} s per volume end to end (pipelined); "
               f"metrics {rows[1:]}", flush=True)
@@ -1563,6 +1797,9 @@ def main() -> None:
 
     # -- 13. the predict options at full width, and their cost ---------------
     predict_options(torch, dev, card, zero_counters, read_counters, unet2d_run, e2e_per_volume)
+
+    # -- 14. serving: serve_once, the Predictor, the exported programs ---------
+    serving_phase(torch, card, zero_counters, read_counters, unet2d_run, predict_masks)
 
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",

@@ -81,7 +81,8 @@ class ConvBlock(nn.Module):
 
     In eval mode BatchNorm is folded into the conv (in f32) and the block is
     one ``conv3d_bn_relu`` or ``conv2d_bn_relu`` call: the CUDA kernel on a
-    card, its plain version on the CPU. Train mode runs ``TorchConv`` (the
+    card, its plain version on the CPU, and under ``torch.export`` the
+    registered operator that runs them. Train mode runs ``TorchConv`` (the
     kernels with their gradients), then train-mode BatchNorm and ReLU with
     autograd.
 

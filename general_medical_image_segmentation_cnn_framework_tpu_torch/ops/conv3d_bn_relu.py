@@ -11,7 +11,14 @@ kernels ``ops/pallas_conv.fused_conv3d_bn_relu``,
 For a CUDA tensor the wrapper launches the kernel, and a failed build or
 launch raises. For a CPU tensor it computes ``conv3d_bn_relu_reference``,
 the plain PyTorch version, which is also the kernel's oracle in the tests
-and in ``chip_smoke.py``.
+and in ``chip_smoke.py``. Both eval convs are also registered PyTorch
+operators, ``torch.ops.gmist_torch.conv3d_bn_relu`` and
+``...conv2d_bn_relu`` (``torch.library.custom_op``; importing this module
+registers them): while ``torch.export`` traces, the wrappers call them, so
+that an exported graph (``serving.export_predictor``) records the hand
+kernel's operator instead of tracing through it. Their kernels are the
+same: the hand kernel, counted, for CUDA tensors; the plain version for
+CPU tensors; a shape function for fake tensors.
 
 The train-mode conv is ``conv3d_k3s1``, the counterpart of the JAX
 package's ``ops/pallas_conv.pallas_conv3d`` (and of the custom VJP of
@@ -179,6 +186,52 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], relu: b
     return y
 
 
+NAMESPACE = "gmist_torch"  # of the registered operators: torch.ops.gmist_torch.*
+
+
+def _launch_counted(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The kernel on CUDA tensors, one more on the launch count of the
+    wrapper of x's rank."""
+    y = _launch(x, w, b, relu)
+    counted = conv3d_bn_relu if x.dim() == 5 else conv2d_bn_relu
+    counted.launches += 1
+    return y
+
+
+def _register(nd: int, reference):
+    """The registered eval conv of spatial rank ``nd``: its CUDA kernel
+    launches the hand kernel and counts the launch; its CPU kernel is
+    ``reference``; its fake kernel gives [N, ..., Cout] in x's dtype.
+    Other devices have no kernel and raise."""
+    op = torch.library.custom_op(
+        f"{NAMESPACE}::conv{nd}d_bn_relu", _launch_counted, mutates_args=(), device_types="cuda",
+    )
+    op.register_kernel("cpu")(reference)
+
+    @op.register_fake
+    def _(x, w, b, relu):
+        return x.new_empty((*x.shape[:-1], w.shape[-1]))
+
+    return op
+
+
+_REGISTERED = {3: _register(3, conv3d_bn_relu_reference), 2: _register(2, conv2d_bn_relu_reference)}
+
+
+def _eval_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool, nd: int) -> torch.Tensor:
+    """The conv of rank ``nd``: through its registered operator while
+    ``torch.export`` traces, else called directly, as the operator's
+    kernels would be (the operator's dispatch costs the host about 30 us
+    more a call, and UNet2D's predict, 864 convs a volume, is bound by the
+    host: ``chip_smoke.py`` [14], ``PERF.md`` section 6)."""
+    _check(x, w, b, nd)
+    if torch.compiler.is_exporting():
+        return _REGISTERED[nd](x, w, b, relu)
+    if x.device.type == "cpu":
+        return _reference(x, w, b, relu)
+    return _launch_counted(x, w, b, relu)
+
+
 def conv3d_bn_relu(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True
 ) -> torch.Tensor:
@@ -187,13 +240,10 @@ def conv3d_bn_relu(
     x [N,D,H,W,Cin] float32 or bfloat16; w [3,3,3,Cin,Cout] in x's dtype
     (BN folded in); b float32 [Cout]. A CUDA tensor runs the CUDA kernel and
     adds one to ``conv3d_bn_relu.launches``; a CPU tensor runs
-    ``conv3d_bn_relu_reference``."""
-    _check(x, w, b, 3)
-    if x.device.type == "cpu":
-        return conv3d_bn_relu_reference(x, w, b, relu)
-    y = _launch(x, w, b, relu)
-    conv3d_bn_relu.launches += 1
-    return y
+    ``conv3d_bn_relu_reference``; under ``torch.export`` the graph records
+    the operator ``torch.ops.gmist_torch.conv3d_bn_relu``, which does the
+    same when the graph runs."""
+    return _eval_conv(x, w, b, relu, 3)
 
 
 conv3d_bn_relu.launches = 0
@@ -207,13 +257,9 @@ def conv2d_bn_relu(
     x [N,H,W,Cin] float32 or bfloat16; w [3,3,Cin,Cout] in x's dtype (BN
     folded in); b float32 [Cout]. A CUDA tensor runs the kernel with one
     depth tap and adds one to ``conv2d_bn_relu.launches``; a CPU tensor runs
-    ``conv2d_bn_relu_reference``."""
-    _check(x, w, b, 2)
-    if x.device.type == "cpu":
-        return conv2d_bn_relu_reference(x, w, b, relu)
-    y = _launch(x, w, b, relu)
-    conv2d_bn_relu.launches += 1
-    return y
+    ``conv2d_bn_relu_reference``; under ``torch.export`` the graph records
+    the operator ``torch.ops.gmist_torch.conv2d_bn_relu``."""
+    return _eval_conv(x, w, b, relu, 2)
 
 
 conv2d_bn_relu.launches = 0

@@ -120,11 +120,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         conv3d_bn_relu(x, w, b)
 
 
+def opcheck_conv3d(device, dtype):
+    """``torch.library.opcheck`` of the registered operator on ``device``:
+    its schema, its fake kernel against the real one, and its dispatch
+    under AOT autograd, for relu on and off."""
+    x, k, b = (torch.from_numpy(a).to(device) for a in _case(2, 3, 4, 5, 8, 16))
+    for relu in (True, False):
+        torch.library.opcheck(torch.ops.gmist_torch.conv3d_bn_relu.default, (x.to(dtype), k.to(dtype), b, relu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_operator_passes_opcheck_on_cpu(dtype):
+    """The registered operator's CPU kernel is the plain version, as the
+    wrapper's CPU path."""
+    opcheck_conv3d(torch.device("cpu"), dtype)
+    x, k, b = map(torch.from_numpy, _case(1, 3, 4, 5, 2, 3))
+    torch.testing.assert_close(torch.ops.gmist_torch.conv3d_bn_relu(x, k, b, True), conv3d_bn_relu(x, k, b))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.cuda
+def test_registered_operator_passes_opcheck_on_cuda(cuda_device, dtype):
+    before = conv3d_bn_relu.launches
+    opcheck_conv3d(cuda_device, dtype)
+    assert conv3d_bn_relu.launches > before  # the operator's CUDA kernel is the hand kernel
 
 
 @pytest.mark.parametrize(

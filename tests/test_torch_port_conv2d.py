@@ -165,11 +165,34 @@ def test_conv2d_wgrad_reference_is_the_conv2d_weight_gradient():
     torch.testing.assert_close(conv2d_wgrad_reference(x, g), want.permute(2, 3, 1, 0), rtol=1e-12, atol=1e-12)
 
 
+def opcheck_conv2d(device, dtype):
+    """``torch.library.opcheck`` of the registered 2-D operator on
+    ``device``, for relu on and off."""
+    x = torch.from_numpy(_rand((2, 5, 7, 8), 41)).to(device, dtype)
+    k = torch.from_numpy(_rand((3, 3, 8, 16), 42, scale=72**-0.5)).to(device, dtype)
+    b = torch.from_numpy(_rand((16,), 43)).to(device)
+    for relu in (True, False):
+        torch.library.opcheck(torch.ops.gmist_torch.conv2d_bn_relu.default, (x, k, b, relu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_operator_passes_opcheck_on_cpu(dtype):
+    opcheck_conv2d(torch.device("cpu"), dtype)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.cuda
+def test_registered_operator_passes_opcheck_on_cuda(cuda_device, dtype):
+    before = conv2d_bn_relu.launches
+    opcheck_conv2d(cuda_device, dtype)
+    assert conv2d_bn_relu.launches > before  # the operator's CUDA kernel is the hand kernel
 
 
 # (N, H, W, Cin, Cout): UNet2D's stem, its first decoder conv (1024 -> 256) and

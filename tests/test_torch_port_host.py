@@ -1,8 +1,9 @@
-"""The port's own copies of the JAX package's host modules against the
-originals on the same inputs, and the device that ``config.platform``
+"""The port's own copies of the JAX package's host modules and offline
+tools against the originals on the same inputs, and the device that ``config.platform``
 selects (null, gpu or cuda: the card, raising without one; cpu: the CPU)."""
 
 import datetime
+import gzip
 
 import numpy as np
 import pytest
@@ -15,12 +16,18 @@ from general_medical_image_segmentation_cnn_framework_tpu import config as jax_c
 from general_medical_image_segmentation_cnn_framework_tpu.data import io as jax_io
 from general_medical_image_segmentation_cnn_framework_tpu.data import pipeline as jax_pipeline
 from general_medical_image_segmentation_cnn_framework_tpu.data import transforms as jax_transforms
+from general_medical_image_segmentation_cnn_framework_tpu.utils import filters as jax_filters
+from general_medical_image_segmentation_cnn_framework_tpu.utils import rename_files as jax_rename
+from general_medical_image_segmentation_cnn_framework_tpu.utils import trans2nii as jax_trans2nii
 from general_medical_image_segmentation_cnn_framework_tpu_torch import config as port_config
 from general_medical_image_segmentation_cnn_framework_tpu_torch import predict as port_predict
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io as port_io
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data import pipeline as port_pipeline
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data import transforms as port_transforms
 from general_medical_image_segmentation_cnn_framework_tpu_torch.logging_utils import AverageMeter, TBWriter
+from general_medical_image_segmentation_cnn_framework_tpu_torch.utils import filters as port_filters
+from general_medical_image_segmentation_cnn_framework_tpu_torch.utils import rename_files as port_rename
+from general_medical_image_segmentation_cnn_framework_tpu_torch.utils import trans2nii as port_trans2nii
 
 NOW = datetime.datetime(2026, 1, 2, 3, 4, 5)
 OVERRIDES = [
@@ -124,3 +131,41 @@ def test_predict_without_platform_refuses_to_fall_back_to_the_cpu(tmp_path):
         pytest.skip("a CUDA card is present: predict would run on it")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         port_predict.main(["config=unet", f"config.output_dir={tmp_path}", f"config.ckpt={tmp_path}/none.pt"])
+
+
+@pytest.mark.parametrize("name", ["gaussian_low_pass", "gaussian_high_pass"])
+def test_filters_match_jax(name):
+    image = np.random.default_rng(7).normal(size=(12, 10, 8)).astype(np.float32)
+    got, want = getattr(port_filters, name)(image, sigma=1.5), getattr(jax_filters, name)(image, sigma=1.5)
+    assert got.dtype == want.dtype == np.float32 and got.tobytes() == want.tobytes()
+
+
+def test_rename_predictions_matches_jax(tmp_path, capsys):
+    """The same renames (printed and on disk) and count; other files stay."""
+    runs = {}
+    for side, module in (("jax", jax_rename), ("port", port_rename)):
+        root = tmp_path / side
+        root.mkdir()
+        for name in ("pred-0000.nii.gz", "pred-0012.nii.gz", "pred-0003.mhd", "metrics.csv"):
+            (root / name).write_text(name)
+        count = module.rename_predictions(root, offset=5)
+        runs[side] = (count, capsys.readouterr().out, {p.name: p.read_text() for p in root.iterdir()})
+    assert runs["port"] == runs["jax"] and runs["port"][0] == 2
+
+
+def test_convert_mhd_to_nii_matches_jax(tmp_path):
+    """The same NIfTI files, byte for byte once gunzipped (the gzip header
+    holds the time of the write), from the same MHD volumes."""
+    src = tmp_path / "mhd"
+    src.mkdir()
+    rng = np.random.default_rng(8)
+    for i in range(2):
+        jax_io.write_mhd(src / f"case-{i}.mhd", jax_io.Volume(rng.normal(size=(1, 6, 7, 5)).astype(np.float32),
+                                                            np.diag([0.8, 1.0, 2.5, 1.0])))
+    assert port_trans2nii.convert_mhd_to_nii(src, tmp_path / "port") == 2
+    assert jax_trans2nii.convert_mhd_to_nii(src, tmp_path / "jax") == 2
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir()) == ["case-0.nii.gz", "case-1.nii.gz"]
+    for name in names:
+        assert gzip.decompress((tmp_path / "port" / name).read_bytes()) == \
+            gzip.decompress((tmp_path / "jax" / name).read_bytes())

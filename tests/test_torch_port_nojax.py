@@ -1,9 +1,10 @@
 """The port runs without JAX: imported with ``jax``, ``flax`` and the JAX
 package itself blocked, it still builds UNet3D and UNet2D and runs a
 forward and a train step of each on the CPU, the sliding window and the
-whole-volume forward under tta (and the mean-logits blend), and train steps with the
+whole-volume forward under tta (and the mean-logits blend), train steps with the
 options of ``train.py`` (adamw with a clip, grad_accum, EMA, remat, focal
-and multiclass losses, sgd); no source of the port or ``chip_smoke.py`` imports
+and multiclass losses, sgd), a serving ``Predictor``, an export of its
+program and a load of it, and the offline filters; no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
 card."""
 
@@ -81,6 +82,19 @@ net3 = UNet3D(1, 3, 2, remat=True).train()
 step = make_train_step(net3, make_optimizer(cfg3, net3.parameters()), make_loss_and_metric(cfg3))
 loss, dice = step(torch.randn(2, 16, 16, 16, 1), torch.randint(0, 3, (2, 16, 16, 16, 1)).float())
 assert torch.isfinite(loss) and 0 <= float(dice) <= 1
+from {PORT}.data.transforms import ZNormalization
+from {PORT}.serving import Predictor, export_predictor, load_exported_predictor
+from {PORT}.utils.filters import gaussian_high_pass, gaussian_low_pass
+serve_cfg = ConfigDict(network="unet", in_classes=1, patch_size=(16, 16, 16), patch_overlap=(4, 4, 4), batch_size=2,
+                       precision="float32", platform="cpu")
+served = UNet3D(1, 2, 2).eval()
+predictor = Predictor(serve_cfg, model=served, params=served.state_dict())
+raw = np.random.default_rng(0).normal(size=(1, 20, 16, 18)).astype(np.float32)
+mask = predictor.predict_array(raw)
+assert mask.shape == (1, 20, 16, 18) and mask.dtype == np.int32
+exported = load_exported_predictor(export_predictor(predictor, (20, 16, 18)))
+assert (exported(served.state_dict(), ZNormalization().normalize_array(raw)) == mask).all()
+assert np.allclose(gaussian_low_pass(raw[0]) + gaussian_high_pass(raw[0]), raw[0], atol=1e-4)
 blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded
