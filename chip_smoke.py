@@ -156,8 +156,29 @@ each of which stops the run with a non-zero exit when it fails:
    ``conv2d_bn_relu`` launches. Then the eval conv through its registered
    operator against the direct call (eager predict's), alternated: host
    microseconds per call, and UNet2D's sliding window on the card.
+15. The 3-D zoo at full width: res_unet, vnet, highresnet, csrnet, er_net,
+   re_net, IS, dunet and fusionnet, each at its JAX ``from_config`` width,
+   bf16, Adam, device data on [10]'s two 256x256x128 volumes (those of
+   [3]). ``train.main`` for 2 steps of 16 x 64^3: finite losses, and per
+   step exactly the ``conv3d_bn_relu`` / ``conv3d_input_grad`` /
+   ``conv3d_wgrad`` launches of the network's k3 s1 p1 convs (``ZOO``;
+   PERF.md section 6 derives them) and one of each loss kernel; a warm step
+   by CUDA events and the peak memory. ``predict.main`` from that
+   checkpoint on one 128x128x64 volume (reduced from 256x256x128 so that
+   nine gzip-9 mask writes fit the run): the mask's shape and the eval
+   convs a volume; the seconds end to end and of the sliding window alone
+   on the card (for IS also, alternated with it, the window of a forward
+   that runs the bands' decoders too, which out1 does not read). Each k3 s1 p1 conv shape the nine bring at 16 x 64^3 and
+   its pooled sizes that UNet3D's 18 ([2], [6]) lack, the ragged stems
+   (Cin 3 and 4) among them, in bf16 against the plain versions with
+   [2]'s and [6]'s limits: forward, input gradient (not for a 1-channel
+   stem, whose input is data) and weight gradient, with the kernel, plain,
+   cuDNN and bound times. Each network at a narrow width (or its fixed
+   one) on 32^3 in f32, card against CPU, logits within 1e-3 of their
+   scale. ER-Net (bare TorchConvs) exported by the whole volume at
+   128x128x64, loaded, the Predictor's mask with 14 eval conv launches.
 
-Phases [3], [7], [10], [12], [13] and [14]'s train, predict and serve runs are the main paths:
+Phases [3], [7], [10], [12], [13], [14] and [15]'s train, predict and serve runs are the main paths:
 every launch counter is set to 0 just before each and read just after; a
 kernel's ``launches`` in the kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
@@ -166,7 +187,8 @@ UNet3D's shapes; conv2d_* the same at UNet2D's; the loss kernels' ``ms`` is
 their device time per call at UNet3D's logits in [5] (the profiler's; up to
 their redesign it was the wrapper's time, host included), with their
 wrapper's time beside it as ``wrapper_ms`` and the largest error of the
-three shapes of [5]. Bounds (``bound_ms``) are the larger of
+three shapes of [5]; the conv kernels' ``max_abs_err`` is the largest of
+[2], [6] and [15]. Bounds (``bound_ms``) are the larger of
 the bytes the work must move (each input read once, each output written
 once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (bf16 tensor cores)
 or 67 TFLOP/s (f32 on CUDA cores), the H100 SXM data-sheet peaks.
@@ -211,6 +233,21 @@ SMALL_VOLUME = (96, 96, 64)  # [13]'s f32 card-vs-CPU volume
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
+ZOO_VOLUME = (128, 128, 64)  # [15]'s predict volume, reduced from VOLUME so that nine gzip-9 mask writes fit
+ZOO_SAMPLES = 16  # [15]: 2 volumes x 16 patches = 2 train steps of 16
+# [15]: k3 s1 p1 conv launches of one train step (forward, input gradient, weight gradient) and of one
+# forward batch in predict (the first, but for IS, whose eval forward runs its encoder and first decoder
+# alone). The derivation is in PERF.md section 6.
+ZOO = {
+    "res_unet": (19, 18, 19, 19), "vnet": (0, 0, 0, 0), "highresnet": (7, 6, 7, 7), "csrnet": (18, 17, 18, 18),
+    "er_net": (14, 13, 14, 14), "re_net": (14, 13, 14, 14), "IS": (54, 17, 18, 18), "dunet": (28, 27, 28, 28),
+    "fusionnet": (20, 19, 20, 20),
+}
+# [15]'s f32 card-vs-CPU models: the class's arguments at a narrow width (the fixed-width nets at theirs)
+ZOO_NARROW = {
+    "res_unet": (1, 2, 8), "vnet": (True, 1, 2), "highresnet": (1, 2), "csrnet": (1, 2, 8), "er_net": (2, 1),
+    "re_net": (1,), "IS": (1, 2, 8), "dunet": (1, 2, 16), "fusionnet": (1, 2, 8, 8),
+}
 
 
 def cuda_ms(torch, fn, reps=10):
@@ -351,17 +388,17 @@ def random_state_dict(torch, model, seed):
     return sd
 
 
-def write_volumes(root, io):
+def write_volumes(root, io, shape=VOLUME, count=N_VOLUMES):
     """Bright-ball volumes: label = ball, image = 2*label + N(0, 0.3)."""
     for split in ("source", "label"):
         (root / split).mkdir(parents=True)
-    grid = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in VOLUME], indexing="ij"))
-    for i in range(N_VOLUMES):
+    grid = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in shape], indexing="ij"))
+    for i in range(count):
         rng = np.random.default_rng(SEED + 100 + i)
-        center = rng.uniform(0.3, 0.7, 3) * np.asarray(VOLUME)
-        radius = rng.uniform(20, 40)
+        center = rng.uniform(0.3, 0.7, 3) * np.asarray(shape)
+        radius = rng.uniform(20, 40) * min(shape) / min(VOLUME)
         label = (np.sqrt(((grid - center[:, None, None, None]) ** 2).sum(0)) < radius).astype(np.float32)
-        image = label * 2.0 + rng.normal(0, 0.3, VOLUME).astype(np.float32)
+        image = label * 2.0 + rng.normal(0, 0.3, shape).astype(np.float32)
         io.write_nifti(root / "source" / f"vol-{i:02d}.nii.gz", io.Volume(image[None]))
         io.write_nifti(root / "label" / f"vol-{i:02d}.nii.gz", io.Volume(label[None]))
 
@@ -862,6 +899,278 @@ def serving_phase(torch, card, zero_counters, read_counters, unet2d_run, predict
         serving.read_volume, serving.write_volume, serving.Predictor.predict_array = read, write, predict_array
         blocks.conv2d_bn_relu = direct2d
         shutil.rmtree(work, ignore_errors=True)
+
+
+def zoo_state_dict(torch, model, seed):
+    """Seeded weights for any zoo network: fan-in scaled kernels (std
+    sqrt(1 / fan_in)), BatchNorm scales in [0.5, 1.5] and variances in
+    [0.5, 2], biases, shifts and means N(0, 0.1), PReLU slopes 0.25."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("running_var"):
+            v = rng.uniform(0.5, 2.0, shape)
+        elif name.endswith("alpha"):
+            v = np.full(shape, 0.25)
+        elif name.endswith("weight") and len(shape) == 1:
+            v = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) >= 2:  # conv, up-conv and Dense kernels [..., Cin, Cout]; UNet3D's Linear head [Cout, Cin]
+            fan_in = shape[1] if name.endswith("head.weight") and len(shape) == 2 else np.prod(shape[:-1])
+            v = rng.normal(0.0, math.sqrt(1.0 / fan_in), shape)
+        else:
+            v = rng.normal(0.0, 0.1, shape)
+        sd[name] = torch.from_numpy(v.astype(np.float32))
+    return sd
+
+
+def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
+    """Phase [15]: the 3-D zoo at full width (see the module docstring).
+    Returns the largest bf16 error of each conv kernel at the zoo's new
+    shapes: {"fwd": e, "dgrad": e, "wgrad": e}."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict, serving, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, transforms
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models import make_forward
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.registry import model_class
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import TorchConv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_wgrad as wgrad_op
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import sliding_window as sw
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    errs = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    try:
+        small = work / "small"
+        write_volumes(small, io, ZOO_VOLUME, 1)
+        tiles = len(sw.grid_locations(ZOO_VOLUME, (PATCH,) * 3, OVERLAP))
+        batches = -(-tiles // BATCH)
+        steps = N_VOLUMES * ZOO_SAMPLES // BATCH
+        shapes = set()  # (Cin, Cout, spatial extent) of the k3 s1 p1 convs at 64^3 patches
+        rows = {}
+        for network, (fwd, dgrad, wgrad, evals) in ZOO.items():
+            # -- train.main at full width, bf16, batch 16 x 64^3, Adam, device data
+            t0 = time.perf_counter()
+            train_argv = [
+                f"config={network}", f"config.data_path={data / 'source'}", f"config.gt_path={data / 'label'}",
+                f"config.output_dir={work / network}", f"config.patch_size={PATCH}, {PATCH}, {PATCH}",
+                f"config.batch_size={BATCH}", f"config.samples_per_volume={ZOO_SAMPLES}", "config.epochs=1",
+                "config.epochs_per_checkpoint=1000", "config.precision=bfloat16", "config.data_backend=device",
+                "config.optimizer=adam",
+            ]
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            out = train.main(train_argv)
+            torch.cuda.synchronize()
+            got = read_counters()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = {"conv3d_bn_relu": fwd * steps, "conv3d_input_grad": dgrad * steps, "conv3d_wgrad": wgrad * steps,
+                    "bce_dice_sums": steps, "bce_dice_grads": steps,
+                    "conv2d_bn_relu": 0, "conv2d_input_grad": 0, "conv2d_wgrad": 0}
+            check(got == want, f"[15] {network} train launches {got} != {want}")
+            (run,) = (work / network).glob("train-*/*")
+            losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+                      if line.startswith("Loss: ")]
+            check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"[15] {network} losses {losses}")
+            train_s = time.perf_counter() - t0
+
+            # warm steps of the entry point's train step on device batches, by CUDA events
+            net, opt = out["model"], out["optimizer"]
+            cfg = compose(train_argv, job_name="train", make_run_dir=False)
+            step = train.make_train_step(make_forward(cfg, net), opt, train.make_loss_and_metric(cfg))
+            gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+            xb = torch.randn(BATCH, PATCH, PATCH, PATCH, 1, device=dev, generator=gen)
+            yb = (torch.rand(BATCH, PATCH, PATCH, PATCH, 1, device=dev, generator=gen) > 0.7).float()
+            step(xb, yb)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                step(xb, yb)
+            end.record()
+            end.synchronize()
+            step_ms = start.elapsed_time(end) / 2
+
+            # the k3 s1 p1 convs' shapes at 64^3 patches, by hooks on one train-mode forward of one sample
+            def record(module, args):
+                if module.hand_kernel:
+                    shapes.add((args[0].shape[-1], module.weight.shape[-1], args[0].shape[1]))
+
+            hooks = [m.register_forward_pre_hook(record) for m in net.modules() if isinstance(m, TorchConv)]
+            with torch.no_grad():
+                make_forward(cfg, net)(xb[:1])
+            for h in hooks:
+                h.remove()
+            del net, opt, out, step, xb, yb
+            torch.cuda.empty_cache()
+
+            # -- predict.main from that checkpoint on one 128x128x64 volume
+            pred_argv = [
+                f"config={network}", f"config.pred_data_path={small / 'source'}", f"config.pred_gt_path={small / 'label'}",
+                f"config.output_dir={work / network / 'pred'}", f"config.ckpt={run / 'latest_checkpoint.ckpt'}",
+                f"config.patch_size={PATCH}, {PATCH}, {PATCH}", "config.patch_overlap=" + ", ".join(map(str, OVERLAP)),
+                f"config.batch_size={BATCH}", "config.precision=bfloat16",
+            ]
+            zero_counters()
+            t0 = time.perf_counter()
+            predict.main(pred_argv)
+            torch.cuda.synchronize()
+            e2e = time.perf_counter() - t0
+            got = read_counters()
+            check(got["conv3d_bn_relu"] == evals * batches and not any(v for k, v in got.items() if k != "conv3d_bn_relu"),
+                  f"[15] {network} predict launches {got}, not {evals} x {batches} batches")
+            (mask_file,) = (work / network / "pred").glob("predict-*/*/pred_file/pred-*.nii.gz")
+            mask = io.read_volume(mask_file).data
+            check(mask.shape == (1, *ZOO_VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0},
+                  f"[15] {network} mask {mask.shape}")
+            # the device part alone: the sliding window on the uploaded volume, warm
+            pcfg = compose(pred_argv, job_name="predict", make_run_dir=False)
+            model = train.build_model(pcfg)
+            n_params = sum(p.numel() for p in model.parameters())
+            model.load_state_dict(checkpoint.load_checkpoint(run / "latest_checkpoint.ckpt")["params"])
+            model.to(dev).eval()
+            src = transforms.ZNormalization().normalize_array(io.read_volume(small / "source" / "vol-00.nii.gz").data)
+            vol = sw.prepare_volume(src, dev, torch.bfloat16)
+            forward = predict.make_forward_fn(pcfg, model)
+            with torch.inference_mode():
+                sw.sliding_window_predict(forward, vol, (PATCH,) * 3, OVERLAP, BATCH)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sw.sliding_window_predict(forward, vol, (PATCH,) * 3, OVERLAP, BATCH)
+                torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            both = ""
+            if network == "IS":  # its eval forward (out1 alone) against one that also runs both bands, alternated
+                from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.fft import band_split
+
+                pairs = []
+                with torch.inference_mode():
+                    for _ in range(4):
+                        pair = []
+                        for f in (forward, lambda t: model(t, *band_split(t, limit=0.04))[0]):
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            sw.sliding_window_predict(f, vol, (PATCH,) * 3, OVERLAP, BATCH)
+                            torch.cuda.synchronize()
+                            pair.append(time.perf_counter() - t0)
+                        pairs.append(pair)
+                both = (f"; IS's window with out1 alone / with all three decoders, alternated (the first pair "
+                        f"warms the latter): {', '.join(f'{a:.4f} / {b:.4f}' for a, b in pairs)} s")
+            del model, vol, forward
+            rows[network] = (step_ms, peak, e2e, card_s)
+            print(f"[15] {card}: {network} ({n_params:,} parameters): train.main {steps} steps in {train_s:.1f} s, "
+                  f"losses {[round(v, 5) for v in losses]}, launches per step {fwd}/{dgrad}/{wgrad} + 1/1 loss; warm "
+                  f"step {step_ms:.3f} ms (bf16, {BATCH}x{PATCH}^3), peak memory {peak:.3f} GiB; predict.main on "
+                  f"{'x'.join(map(str, ZOO_VOLUME))} ({tiles} tiles, {batches} batches, {evals * batches} conv launches): "
+                  f"{e2e:.3f} s end to end, the sliding window on the card {card_s:.4f} s{both}", flush=True)
+
+        # -- each new conv shape against its plain version, bf16 at batch 16
+        unet = {(ci, co, PATCH >> lv) for (ci, co), lv in zip(
+            [(1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256), (256, 512),
+             (512, 512), (512, 256), (256, 256), (256, 128), (128, 128), (128, 64), (64, 64), (64, 32), (32, 32)],
+            LEVELS)}  # UNet3D's 18, checked in [2] and [6]
+        new = sorted(shapes - unet, key=lambda s: (-s[2], s[0], s[1]))
+        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        sums = np.zeros((3, 4))
+        for cin, cout, s in new:
+            x = torch.randn(BATCH, s, s, s, cin, device=dev, generator=gen).bfloat16()
+            g = torch.randn(BATCH, s, s, s, cout, device=dev, generator=gen).bfloat16()
+            w = (torch.randn(3, 3, 3, cin, cout, device=dev, generator=gen) * (27 * cin) ** -0.5).bfloat16()
+            b = 0.1 * torch.randn(cout, device=dev, generator=gen)
+            xc, gc, wc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+            flops, nbytes = conv_work(BATCH * s**3, cin, cout, 2)
+            bound = bound_ms(flops, nbytes, "bfloat16")[0]
+            line = f"[15] conv {cin:>4d}->{cout:<4d} {BATCH}x{s}^3 bf16"
+            y = conv.conv3d_bn_relu(x, w, b, relu=False)
+            torch.cuda.synchronize()
+            want = conv.conv3d_bn_relu_reference(x.float(), w.float(), b, relu=False)
+            err, lim = (y.float() - want).abs().max().item(), BF16_TOL * max(1.0, want.abs().max().item())
+            check(err <= lim, f"[15] conv {cin}->{cout} at {s}^3: forward error {err} > {lim}")
+            errs["fwd"] = max(errs["fwd"], err)
+            t = (cuda_ms(torch, lambda: conv.conv3d_bn_relu(x, w, b, relu=False), 5),
+                 cuda_ms(torch, lambda: conv.conv3d_bn_relu_reference(x, w, b, relu=False), 5),
+                 cuda_ms(torch, lambda: torch.nn.functional.conv3d(xc, wc, b.bfloat16(), padding=1), 5), bound)
+            sums[0] += t
+            line += f" | fwd err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} bound {t[3]:.4f}"
+            del y, want
+            if cin > 1:  # a 1-channel stem's input is data: its input gradient is never taken
+                dx = conv.conv3d_input_grad(g, w)
+                torch.cuda.synchronize()
+                want = torch.nn.grad.conv3d_input((BATCH, cin, s, s, s), w.float().permute(4, 3, 0, 1, 2),
+                                                  g.float().permute(0, 4, 1, 2, 3), padding=1).permute(0, 2, 3, 4, 1)
+                err, lim = (dx.float() - want).abs().max().item(), BF16_TOL * max(1.0, want.abs().max().item())
+                check(err <= lim, f"[15] conv {cin}->{cout} at {s}^3: input gradient error {err} > {lim}")
+                errs["dgrad"] = max(errs["dgrad"], err)
+                t = (cuda_ms(torch, lambda: conv.conv3d_input_grad(g, w), 5),
+                     cuda_ms(torch, lambda: conv.conv3d_input_grad_reference(g, w), 5),
+                     cuda_ms(torch, lambda: torch.nn.grad.conv3d_input((BATCH, cin, s, s, s), wc, gc, padding=1), 5),
+                     bound)
+                sums[1] += t
+                line += f" | dgrad err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f}"
+                del dx, want
+            dw = wgrad_op.conv3d_wgrad(x, g)
+            torch.cuda.synchronize()
+            want = wgrad_op.conv3d_wgrad_reference(x.double(), g.double())
+            err, lim = (dw.double() - want).abs().max().item(), WGRAD_TOL * max(1.0, want.abs().max().item())
+            check(err <= lim, f"[15] conv {cin}->{cout} at {s}^3: weight gradient error {err} > {lim}")
+            errs["wgrad"] = max(errs["wgrad"], err)
+            t = (cuda_ms(torch, lambda: wgrad_op.conv3d_wgrad(x, g), 5),
+                 cuda_ms(torch, lambda: wgrad_op.conv3d_wgrad_reference(x, g), 5),
+                 cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(xc, (cout, cin, 3, 3, 3), gc, padding=1), 5), bound)
+            sums[2] += t
+            line += f" | wgrad err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} (ms)"
+            print(line, flush=True)
+            del x, g, w, dw, want, xc, gc, wc
+        print(f"[15] {len(new)} conv shapes the zoo adds to UNet3D's 18 (of {len(shapes)}): sums kernel / plain / cudnn / "
+              f"bound ms: forward {' / '.join(f'{v:.3f}' for v in sums[0])}, input gradient "
+              f"{' / '.join(f'{v:.3f}' for v in sums[1])}, weight gradient {' / '.join(f'{v:.3f}' for v in sums[2])}",
+              flush=True)
+
+        # -- f32 card against CPU at a narrow width on 32^3
+        rng = np.random.default_rng(SEED + 17)
+        x32 = torch.from_numpy(rng.normal(size=(1, 32, 32, 32, 1)).astype(np.float32))
+        for network, args in ZOO_NARROW.items():
+            net = model_class(network)(*args)
+            net.load_state_dict(zoo_state_dict(torch, net, SEED + 17))
+            forward = make_forward(ConfigDict(network=network), net.eval())
+            with torch.inference_mode():
+                want = forward(x32)
+                got = make_forward(ConfigDict(network=network), net.to(dev))(x32.to(dev)).cpu()
+            scale = max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            check(got.shape == want.shape == (1, 32, 32, 32, 2) and torch.isfinite(got).all().item(),
+                  f"[15] {network} f32 logits {tuple(got.shape)}")
+            check(err <= 1e-3 * scale, f"[15] {network} f32 logits card vs CPU: max|diff| {err} > {1e-3 * scale}")
+            print(f"[15] {network} {args} f32 logits on 32^3, card vs CPU: max|diff| {err:.3g} (scale {scale:.3g})",
+                  flush=True)
+            del net
+
+        # -- the export of a network of bare TorchConvs: ER-Net, whole volume
+        net = model_class("er_net")(2, 1)
+        state = zoo_state_dict(torch, net, SEED + 18)
+        ecfg = compose(["config=er_net", f"config.patch_size={PATCH}, {PATCH}, {PATCH}", "config.whole_volume=true",
+                        "config.precision=bfloat16", f"config.output_dir={work / 'serve'}"], job_name="serve")
+        predictor = serving.Predictor(ecfg, model=net, params=state)
+        raw = io.read_volume(small / "source" / "vol-00.nii.gz").data
+        want = predictor.predict_array(raw)
+        t0 = time.perf_counter()
+        blob = serving.export_predictor(predictor, ZOO_VOLUME)
+        export_s = time.perf_counter() - t0
+        exported = serving.load_exported_predictor(blob)
+        before = conv.conv3d_bn_relu.launches
+        got = exported({k: v.to(dev) for k, v in state.items()}, transforms.ZNormalization().normalize_array(raw))
+        launched = conv.conv3d_bn_relu.launches - before
+        check(got.shape == (1, *ZOO_VOLUME) and np.array_equal(got, want), "[15] the er_net artifact's mask differs")
+        check(launched == ZOO["er_net"][3], f"[15] the er_net artifact launched {launched} eval convs, not 14")
+        print(f"[15] export of ER-Net's whole-volume program at {'x'.join(map(str, ZOO_VOLUME))}: {export_s:.1f} s, "
+              f"{len(blob):,} bytes; loaded, its mask is the Predictor's ({100 * want.mean():.2f}% foreground), "
+              f"{launched} conv3d_bn_relu launches", flush=True)
+        print(f"[15] {card}: the zoo's warm step ms / peak GiB / predict s end to end / s on the card: "
+              + "; ".join(f"{n} {r[0]:.1f} / {r[1]:.2f} / {r[2]:.2f} / {r[3]:.4f}" for n, r in rows.items())
+              + f"; [15] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return errs
 
 
 def main() -> None:
@@ -1800,6 +2109,11 @@ def main() -> None:
 
     # -- 14. serving: serve_once, the Predictor, the exported programs ---------
     serving_phase(torch, card, zero_counters, read_counters, unet2d_run, predict_masks)
+
+    # -- 15. the 3-D zoo at full width: train, predict, new conv shapes, card vs CPU, export
+    zoo_errs = zoo_phase(torch, dev, card, zero_counters, read_counters, unet2d_run[0] / "data")
+    max_err, dgrad_err, wgrad_err = (max(max_err, zoo_errs["fwd"]), max(dgrad_err, zoo_errs["dgrad"]),
+                                     max(wgrad_err, zoo_errs["wgrad"]))
 
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",

@@ -1,23 +1,29 @@
-"""Carry UNet3D and UNet2D weights from the JAX package to the port.
+"""Carry the JAX package's weights to the port, for every ported network.
 
-``unet3d_state_dict_from_flax`` and ``unet2d_state_dict_from_flax`` map the
-Flax variable tree (params and batch_stats) onto the port's
-``state_dict``. The port keeps the Flax layouts (conv kernels
-[kd, kh, kw, Cin, Cout], or [kh, kw, Cin, Cout] in 2-D), so only names
-change, plus UNet3D's 1x1x1 head, which becomes an ``nn.Linear``. The 2-D
-tree nests one scope deeper: a 2-D ``TorchConv`` keeps its kernel and bias
-in a ``Conv_0`` child, which is how ``state_dict_from_flax`` tells the
-two apart.
+``state_dict_from_flax`` maps a Flax variable tree (params and
+batch_stats) onto the port model's ``state_dict``. The port keeps the Flax
+layouts (conv kernels [kd, kh, kw, Cin, Cout], or [kh, kw, Cin, Cout] in
+2-D, Dense kernels [in, out]), so only names change, and one walker
+(``module_state_dict_from_flax``) maps every network module by module:
+each port module that owns variables records the Flax scope they sit in
+(``module.scope``, set by ``nn.blocks.ScopeNames``), and the leaves
+(TorchConv, TorchConvTranspose, BatchNorm, InstanceNorm, PReLU, Dense, and
+UNet3D's 1x1x1 head, an ``nn.Linear`` that takes the kernel transposed)
+read their Flax names. A module used twice (res_unet's shared convs, IS's
+shared encoder) is one port module in one Flax scope: one set of weights.
+``network_of`` tells the network from the tree's top-level scopes (those
+of the ported networks all differ); ``model_for_tree`` builds the port
+model of the tree's widths by the class's ``from_flax``.
 
 ``optimizer_state_from_optax`` tells from the tree which optimizer the JAX
 package's ``make_optimizer`` built (adam, adamw or sgd, with or without
 ``grad_clip``) and turns its state into the state dict of the port's
 optimizer for the same config (``optim.make_optimizer``): Adam / AdamW's
 mu -> exp_avg, nu -> exp_avg_sq, count -> step; SGD's trace ->
-momentum_buffer (plain SGD has no state). The updates agree: torch's
-lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps) is optax's
-lr * m_hat / (sqrt(v_hat) + eps), and torch's momentum buffer is optax's
-trace.
+momentum_buffer (plain SGD has no state), each by the parameters' map. The
+updates agree: torch's lr / bc1 * m / (sqrt(v) / sqrt(bc2) + eps) is
+optax's lr * m_hat / (sqrt(v_hat) + eps), and torch's momentum buffer is
+optax's trace.
 
 ``read_flax_msgpack`` reads a JAX ``.ckpt`` (``checkpoint.save_checkpoint``
 of the JAX package: flax msgpack of {params, batch_stats, opt_state, epoch})
@@ -27,7 +33,7 @@ one, so that ``load_mode=1`` in the port resumes a JAX run; an orbax
 checkpoint directory (``checkpoint_backend=orbax``) is refused::
 
     python -m general_medical_image_segmentation_cnn_framework_tpu_torch.convert \\
-        latest_checkpoint.ckpt unet3d.pt
+        latest_checkpoint.ckpt model.pt
 """
 
 from __future__ import annotations
@@ -41,9 +47,6 @@ import torch
 
 from .checkpoint import save_checkpoint
 
-N_BLOCKS = 18
-N_UPS = 4
-
 # flax msgpack extension types (flax.serialization._MsgpackExtType)
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -53,83 +56,102 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def convblock_state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """One Flax ``ConvBlock`` scope -> the port ConvBlock's state_dict; its
-    parameters alone when ``batch_stats`` is None. The conv's kernel and
-    bias sit in ``TorchConv_0`` (3-D) or in its ``Conv_0`` child (2-D)."""
-    conv, bn = params["TorchConv_0"], params["BatchNorm_0"]
-    conv = conv.get("Conv_0", conv)
-    sd = {
-        "conv.weight": _t(conv["kernel"]),
-        "conv.bias": _t(conv["bias"]),
-        "bn.weight": _t(bn["scale"]),
-        "bn.bias": _t(bn["bias"]),
-    }
-    if batch_stats is not None:
-        sd["bn.running_mean"] = _t(batch_stats["BatchNorm_0"]["mean"])
-        sd["bn.running_var"] = _t(batch_stats["BatchNorm_0"]["var"])
+def _leaf_from_flax(module: torch.nn.Module, params: Mapping, stats: Optional[Mapping]) -> Dict[str, torch.Tensor]:
+    """The tensors a leaf module owns, from its Flax scope: a conv's
+    ``kernel`` and ``bias`` (directly, or in the ``Conv_0`` child of XLA's
+    route), a 1x1x1 conv's kernel [1, 1, 1, Cin, Cout] as an
+    ``nn.Linear``'s [Cout, Cin] weight, BatchNorm's ``scale``/``bias`` and
+    ``mean``/``var`` statistics, an affine InstanceNorm's ``scale``/``bias``,
+    PReLU's ``alpha``, Dense's ``kernel``/``bias``; nothing for any other
+    module."""
+    from .nn.blocks import Dense, PReLU, TorchConv, TorchConvTranspose
+    from .nn.norm import BatchNorm, InstanceNorm
+
+    sd = {}
+    if isinstance(module, (TorchConv, TorchConvTranspose, Dense)):
+        p = params.get("Conv_0", params)
+        sd["weight"] = _t(p["kernel"])
+        if module.bias is not None:
+            sd["bias"] = _t(p["bias"])
+    elif isinstance(module, torch.nn.Linear):
+        kernel = np.asarray(params["kernel"], dtype=np.float32)
+        sd["weight"], sd["bias"] = _t(kernel.reshape(kernel.shape[-2:]).T), _t(params["bias"])
+    elif isinstance(module, (BatchNorm, InstanceNorm)):
+        if module.weight is not None:
+            sd["weight"], sd["bias"] = _t(params["scale"]), _t(params["bias"])
+        if isinstance(module, BatchNorm) and stats is not None:
+            sd["running_mean"], sd["running_var"] = _t(stats["mean"]), _t(stats["var"])
+    elif isinstance(module, PReLU):
+        sd["alpha"] = _t(params["alpha"])
     return sd
 
 
-def unet3d_state_dict_from_flax(
-    params: Mapping, batch_stats: Optional[Mapping] = None
+def module_state_dict_from_flax(
+    module: torch.nn.Module, params: Mapping, batch_stats: Optional[Mapping] = None, path: str = ""
 ) -> Dict[str, torch.Tensor]:
-    """Flax UNet3D ``params``/``batch_stats`` (numpy leaves) -> port
-    state_dict. Without ``batch_stats``: the parameters alone, for any tree
-    shaped like ``params`` (its gradients, or Adam's mu or nu)."""
-    sd: Dict[str, torch.Tensor] = {}
-    for i in range(N_BLOCKS):
-        stats = None if batch_stats is None else batch_stats[f"ConvBlock_{i}"]
-        block = convblock_state_dict_from_flax(params[f"ConvBlock_{i}"], stats)
-        sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
-    for i in range(N_UPS):
-        up = params[f"TorchConvTranspose_{i}"]
-        sd[f"ups.{i}.weight"] = _t(up["kernel"])
-        sd[f"ups.{i}.bias"] = _t(up["bias"])
-    head = params["Conv_0"]
-    kernel = np.asarray(head["kernel"], dtype=np.float32)  # [1, 1, 1, Cin, Cout]
-    sd["head.weight"] = _t(kernel.reshape(kernel.shape[-2], kernel.shape[-1]).T)
-    sd["head.bias"] = _t(head["bias"])
+    """``module``'s state_dict from the Flax scope ``params`` (and
+    ``batch_stats``; without them the parameters alone, for any tree shaped
+    like ``params``: gradients, Adam's mu or nu). A child with a ``scope``
+    reads that child scope; a child without one (a ModuleList, a container)
+    reads its parent's."""
+    sd = _leaf_from_flax(module, params, batch_stats)
+    for name, child in module.named_children():
+        scope = getattr(child, "scope", None)
+        sub_p, sub_s = params, batch_stats
+        if scope is not None:
+            if scope not in params:
+                if any(True for _ in child.parameters()):
+                    raise KeyError(f"the Flax tree has no scope {path + scope!r} for the port's {name} "
+                                   f"({type(child).__name__}); found {sorted(params)}")
+                continue
+            sub_p = params[scope]
+            sub_s = None if batch_stats is None else batch_stats.get(scope, {})
+        sub = module_state_dict_from_flax(child, sub_p, sub_s, f"{path}{scope}/" if scope else path)
+        sd.update({f"{name}.{k}": v for k, v in sub.items()})
     return sd
 
 
-def unet2d_state_dict_from_flax(
-    params: Mapping, batch_stats: Optional[Mapping] = None
-) -> Dict[str, torch.Tensor]:
-    """Flax UNet2D ``params``/``batch_stats`` (numpy leaves) -> port
-    state_dict: ``ConvBlock_i`` -> ``blocks.i``, the 1x1 head
-    ``TorchConv_0/Conv_0`` -> ``head`` (kernel [1, 1, 64, classes] as it
-    is). Without ``batch_stats``: the parameters alone, for any tree shaped
-    like ``params``."""
-    sd: Dict[str, torch.Tensor] = {}
-    for i in range(N_BLOCKS):
-        stats = None if batch_stats is None else batch_stats[f"ConvBlock_{i}"]
-        block = convblock_state_dict_from_flax(params[f"ConvBlock_{i}"], stats)
-        sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
-    head = params["TorchConv_0"]["Conv_0"]
-    sd["head.weight"] = _t(head["kernel"])
-    sd["head.bias"] = _t(head["bias"])
-    return sd
+# network -> the top-level scope that tells it from the others, in the order they are tried
+_SIGNATURES = (
+    ("IS", "_Encoder_0"), ("dunet", "_UNet3Level_0"), ("fusionnet", "UNet3D_0"),
+    ("highresnet", "DilationBlock_0"), ("vnet", "_NConvs_0"), ("res_unet", "_NormLReluConv_0"),
+    ("er_net", "SFDecoder_0"), ("re_net", "ResEncoder_0"),
+)
+
+
+def network_of(params: Mapping) -> str:
+    """The port's ``config.network`` of a Flax params tree of the JAX
+    package; ``ValueError`` naming the top-level scopes when it is none of
+    the ported networks."""
+    keys = set(params) if isinstance(params, Mapping) else set()
+    for network, key in _SIGNATURES:
+        if key in keys:
+            return network
+    if "ConvBlock_17" in keys and isinstance(params["ConvBlock_0"], Mapping):
+        conv = params["ConvBlock_0"]["TorchConv_0"]
+        if len(conv.get("Conv_0", conv)["kernel"].shape) == 4:  # [3, 3, Cin, Cout]
+            return "unet2d"
+        if "Conv_0" in keys:
+            return "unet"
+        if "TorchConv_0" in keys and "TorchConvTranspose_6" in keys:
+            return "csrnet"
+    raise ValueError(f"a Flax tree of no network the port carries; its top-level scopes: {sorted(keys)}")
+
+
+def model_for_tree(params: Mapping) -> torch.nn.Module:
+    """A float32 port model of the network (``network_of``) and widths of
+    the Flax params tree ``params``."""
+    from .models.registry import model_class
+
+    return model_class(network_of(params)).from_flax(params)
 
 
 def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """A Flax UNet3D or UNet2D tree -> the port's state_dict; the tree says
-    which: a 2-D ``TorchConv`` keeps its kernel in a ``Conv_0`` child."""
-    if "Conv_0" in params["ConvBlock_0"]["TorchConv_0"]:
-        return unet2d_state_dict_from_flax(params, batch_stats)
-    return unet3d_state_dict_from_flax(params, batch_stats)
-
-
-def _model_of(sd: Mapping[str, torch.Tensor]) -> torch.nn.Module:
-    """A port model with the shapes of ``sd`` (for the optimizer's parameter order)."""
-    stem = sd["blocks.0.conv.weight"]
-    if stem.ndim == 4:  # [3, 3, Cin, Cout]: UNet2D
-        from .models.two_d.unet2d import UNet2D
-
-        return UNet2D(stem.shape[2], sd["head.weight"].shape[-1])
-    from .models.three_d.unet3d import UNet3D
-
-    return UNet3D(stem.shape[3], sd["head.weight"].shape[0], stem.shape[4])
+    """A Flax tree of any ported network -> the port's state_dict, by
+    ``module_state_dict_from_flax`` over ``model_for_tree`` of the tree;
+    without ``batch_stats``, the parameters alone (for a gradient tree or
+    Adam's mu or nu)."""
+    return module_state_dict_from_flax(model_for_tree(params), params, batch_stats)
 
 
 def _optax_kind(opt_state: Mapping):
@@ -182,10 +204,10 @@ def optimizer_state_from_optax(opt_state: Mapping, model: torch.nn.Module):
     order = [name_of[id(p)] for group in optimizer.param_groups for p in group["params"]]
     template = optimizer.state_dict()
     if name == "sgd":
-        trace = state_dict_from_flax(inner["trace"]) if inner else None
+        trace = module_state_dict_from_flax(model, inner["trace"]) if inner else None
         state = {i: {"momentum_buffer": trace[n]} for i, n in enumerate(order)} if trace else {}
     else:
-        mu, nu = state_dict_from_flax(inner["mu"]), state_dict_from_flax(inner["nu"])
+        mu, nu = module_state_dict_from_flax(model, inner["mu"]), module_state_dict_from_flax(model, inner["nu"])
         step = torch.tensor(float(np.asarray(inner["count"])))
         state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for i, n in enumerate(order)}
     return {"state": state, "param_groups": template["param_groups"]}, name
@@ -227,19 +249,20 @@ def _has_chunked(tree) -> bool:
 
 
 def convert_checkpoint(src: Union[str, Path], dst: Union[str, Path]) -> None:
-    """JAX UNet3D or UNet2D ``.ckpt`` -> the port's checkpoint at ``dst``,
-    with the optimizer's state and name when ``src`` has one (else weights
-    only)."""
+    """A JAX ``.ckpt`` of any ported network (told from its tree) -> the
+    port's checkpoint at ``dst``, with the optimizer's state and name when
+    ``src`` has one (else weights only)."""
     if Path(src).is_dir():
         raise ValueError(
             f"{src} is a directory: an orbax checkpoint (checkpoint_backend=orbax); the converter reads "
             "the flax msgpack .ckpt of checkpoint_backend=msgpack only"
         )
     state = read_flax_msgpack(src)
-    sd = state_dict_from_flax(state["params"], state["batch_stats"])
+    model = model_for_tree(state["params"])
+    sd = module_state_dict_from_flax(model, state["params"], state["batch_stats"])
     opt_state = optimizer = None
     if state.get("opt_state"):
-        opt_state, optimizer = optimizer_state_from_optax(state["opt_state"], _model_of(sd))
+        opt_state, optimizer = optimizer_state_from_optax(state["opt_state"], model)
     save_checkpoint(dst, sd, int(state.get("epoch", 0)), opt_state, optimizer)
 
 

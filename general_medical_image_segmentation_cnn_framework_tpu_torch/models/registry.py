@@ -1,14 +1,15 @@
-"""``config.network`` -> model. Ported so far: ``unet`` (UNet3D) and
-``unet2d`` (UNet2D)."""
+"""``config.network`` -> model. Ported so far: ``unet`` (UNet3D), ``unet2d``
+(UNet2D) and nine of the 3-D zoo: ``res_unet``, ``vnet``, ``highresnet``,
+``csrnet``, ``er_net``, ``re_net``, ``IS``, ``dunet``, ``fusionnet``, each
+at its JAX ``from_config`` width."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Callable
 
+import torch
 from torch import nn
-
-from .three_d.unet3d import UNet3D
-from .two_d.unet2d import UNet2D
 
 # 2-D networks operate on [B, H, W, C] slices; the train and predict entry
 # points adapt [B, 1, H, W, C] patches by dropping and restoring the depth
@@ -17,7 +18,23 @@ TWO_D_NETWORKS = {
     "unet2d", "unetpp", "segnet", "fcn2d", "deeplab", "pspnet",
     "miniseg", "highres2dnet",
 }
-_FACTORIES = {"unet": UNet3D.from_config, "unet2d": UNet2D.from_config}
+# network -> (module under models/, class): each class has ``from_config``
+_MODELS = {
+    "unet": ("three_d.unet3d", "UNet3D"),
+    "unet2d": ("two_d.unet2d", "UNet2D"),
+    "res_unet": ("three_d.residual_unet3d", "ResidualUNet3D"),
+    "vnet": ("three_d.vnet3d", "VNet"),
+    "highresnet": ("three_d.highresnet", "HighResNet"),
+    "csrnet": ("three_d.csrnet", "CSRNet"),
+    "er_net": ("three_d.er_net", "ERNet"),
+    "re_net": ("three_d.re_net", "RENet"),
+    "IS": ("three_d.is_net", "ISNet"),
+    "dunet": ("three_d.double_unet", "DoubleUNet"),
+    "fusionnet": ("three_d.fusionnet", "FusionNet"),
+}
+# the JAX package's networks still to be ported (ROADMAP queue 1 item 11)
+UNPORTED = ("densevoxelnet", "densenet", "fcn3d", "unetr", "vtnet", "unetpp", "segnet", "fcn2d", "deeplab",
+            "pspnet", "miniseg", "highres2dnet")
 
 
 def is_2d(network: str) -> bool:
@@ -41,11 +58,57 @@ def pad_multiple(network: str) -> int:
     return _PAD_MULTIPLE.get(network, 16)
 
 
+def model_kwargs(config, remat: bool = False) -> dict:
+    """The keyword arguments every ``from_config`` takes from the config:
+    the compute ``dtype`` (``precision``), ``init_type`` and the ``seed``
+    of the weights' generator; with ``remat``, ``remat`` and
+    ``remat_policy`` for the network's ConvBlocks."""
+    kw = dict(
+        dtype=torch.bfloat16 if getattr(config, "precision", "") == "bfloat16" else torch.float32,
+        init_type=getattr(config, "init_type", "none") or "none",
+        seed=int(getattr(config, "seed", 0) or 0),
+    )
+    if remat:
+        kw.update(remat=bool(getattr(config, "remat", False)),
+                  remat_policy=str(getattr(config, "remat_policy", "") or ""))
+    return kw
+
+
+def model_class(network: str) -> type:
+    """The port's class of ``network``; ``NotImplementedError`` for one of
+    the JAX package's networks not ported yet, ``KeyError`` otherwise."""
+    if network in _MODELS:
+        module, cls = _MODELS[network]
+        return getattr(importlib.import_module(f".{module}", __package__), cls)
+    if network in UNPORTED:
+        raise NotImplementedError(
+            f"network '{network}' is not ported to PyTorch yet; ported are "
+            f"{', '.join(repr(n) for n in _MODELS)}. The rest of the JAX package's zoo "
+            f"({', '.join(UNPORTED)}) comes in the order ROADMAP.md lists."
+        )
+    raise KeyError(f"unknown network '{network}'; available: {sorted((*_MODELS, *UNPORTED))}")
+
+
 def make_forward(config, model: nn.Module) -> Callable:
-    """``x [B, D, H, W, C] -> logits [B, D, H, W, classes]``: the model
-    itself, or for a 2-D network the slice adapter, which runs it on
-    ``x[:, 0]`` (D must be 1) and returns its logits with the depth axis
-    restored."""
+    """``x [B, D, H, W, C] -> logits [B, D, H, W, classes]``, as the JAX
+    drivers call each network: IS gives the first of its two outputs, in
+    train mode from x and its FFT bands (``ops.fft.band_split(x, 0.04)``:
+    every decoder runs, as their BatchNorm statistics move), otherwise from
+    x alone (what the JAX predict's jitted forward keeps: the bands, the
+    other two decoders and the second head feed nothing it returns); a
+    2-D network runs on ``x[:, 0]`` (D must be 1), its logits
+    (the first element of a tuple) get the depth axis back; any other 3-D
+    network is the model itself."""
+    if config.network == "IS":
+        from ..ops.fft import band_split
+
+        def forward_is(x: torch.Tensor) -> torch.Tensor:
+            # serving's export passes a function of the weights, which is never in train mode
+            if getattr(model, "training", False):
+                return model(x, *band_split(x, limit=0.04))[0]
+            return model(x)[0]
+
+        return forward_is
     if not is_2d(config.network):
         return model
 
@@ -54,16 +117,12 @@ def make_forward(config, model: nn.Module) -> Callable:
             raise ValueError(
                 f"2-D network '{config.network}' needs patch_size '1, H, W', got depth {x.shape[1]}"
             )
-        return model(x[:, 0])[:, None]
+        out = model(x[:, 0])
+        return (out[0] if isinstance(out, tuple) else out)[:, None]
 
     return forward
 
 
 def build_model(config) -> nn.Module:
-    if config.network in _FACTORIES:
-        return _FACTORIES[config.network](config)
-    raise NotImplementedError(
-        f"network '{config.network}' is not ported to PyTorch yet; only "
-        f"{', '.join(repr(n) for n in _FACTORIES)} are. "
-        "ROADMAP.md lists the order in which the rest of the zoo is ported."
-    )
+    """The network ``config.network`` names, built by its ``from_config``."""
+    return model_class(config.network).from_config(config)

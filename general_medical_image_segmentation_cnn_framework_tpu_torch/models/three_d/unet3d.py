@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...nn.blocks import ConvBlock, TorchConvTranspose, max_pool
+from ...nn.blocks import ConvBlock, ScopeNames, TorchConvTranspose, flax_conv_io, max_pool
 from ...nn.blocks import remat_policy as block_remat
 from ...nn.init import lecun_normal
 
@@ -56,12 +56,14 @@ class UNet3D(nn.Module):
             (4 * f, 2 * f), (2 * f, 2 * f), (2 * f, f), (f, f),
         ]
         policy = block_remat(remat_policy) if remat else None
-        self.blocks = nn.ModuleList(ConvBlock(ci, co, dtype, init_type, gen, remat=policy) for ci, co in widths)
+        blocks, ups = ScopeNames(), ScopeNames()
+        self.blocks = nn.ModuleList(blocks(ConvBlock(ci, co, dtype, init_type, gen, remat=policy)) for ci, co in widths)
         self.ups = nn.ModuleList(
-            TorchConvTranspose(ci, co, dtype, init_type, gen)
+            ups(TorchConvTranspose(ci, co, dtype, init_type, gen))
             for ci, co in ((16 * f, 8 * f), (8 * f, 4 * f), (4 * f, 2 * f), (2 * f, f))
         )
         self.head = nn.Linear(f, out_channels)  # the 1x1x1 conv on channels-last
+        self.head.scope = "Conv_0"
         with torch.no_grad():
             self.head.weight.copy_(lecun_normal((f, out_channels), gen).T)
             self.head.bias.zero_()
@@ -81,6 +83,13 @@ class UNet3D(nn.Module):
             remat=bool(getattr(config, "remat", False)),
             remat_policy=str(getattr(config, "remat_policy", "") or ""),
         )
+
+    @classmethod
+    def from_flax(cls, params, **kwargs) -> "UNet3D":
+        """A model of the widths of the JAX UNet3D's params tree; ``kwargs``
+        (``dtype``, ...) go to the constructor."""
+        cin, f = flax_conv_io(params, "ConvBlock_0", "TorchConv_0")
+        return cls(cin, flax_conv_io(params, "Conv_0")[1], f, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, D, H, W, in_channels] -> float32 logits [N, D, H, W, out_channels]."""

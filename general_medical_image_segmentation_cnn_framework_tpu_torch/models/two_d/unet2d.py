@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.blocks import ConvBlock, TorchConv, max_pool, resize_linear_align_corners
+from ...nn.blocks import ConvBlock, ScopeNames, TorchConv, flax_conv_io, max_pool, resize_linear_align_corners
 
 WIDTHS = (64, 128, 256, 512, 512)
 
@@ -49,8 +49,9 @@ class UNet2D(nn.Module):
             (f4 + f5, 256), (256, 256), (f3 + 256, 128), (128, 128),
             (f2 + 128, 64), (64, 64), (f1 + 64, 64), (64, 64),
         ]
-        self.blocks = nn.ModuleList(ConvBlock(ci, co, dtype, init_type, gen, ndim=2) for ci, co in widths)
-        self.head = TorchConv(64, classes, dtype, init_type, gen, ndim=2, kernel_size=1)
+        names = ScopeNames()
+        self.blocks = nn.ModuleList(names(ConvBlock(ci, co, dtype, init_type, gen, ndim=2)) for ci, co in widths)
+        self.head = names(TorchConv(64, classes, dtype, init_type, gen, ndim=2, kernel_size=1))
 
     @classmethod
     def from_config(cls, config) -> "UNet2D":
@@ -63,6 +64,13 @@ class UNet2D(nn.Module):
             dtype=torch.bfloat16 if getattr(config, "precision", "") == "bfloat16" else torch.float32,
             seed=int(getattr(config, "seed", 0) or 0),
         )
+
+    @classmethod
+    def from_flax(cls, params, **kwargs) -> "UNet2D":
+        """A model of the channels of the JAX UNet2D's params tree; ``kwargs``
+        (``dtype``, ...) go to the constructor."""
+        cin = flax_conv_io(params, "ConvBlock_0", "TorchConv_0")[0]
+        return cls(cin, flax_conv_io(params, "TorchConv_0")[1], **kwargs)
 
     def _up(self, x1: torch.Tensor, x2: torch.Tensor, i: int) -> torch.Tensor:
         """Upsample x1 x2, zero-pad it to x2's size (odd sizes), concat

@@ -1,18 +1,25 @@
-"""The building blocks UNet3D and UNet2D use, channels-last (NDHWC / NHWC).
+"""The building blocks of the port's networks, channels-last (NDHWC / NHWC).
 
 Parameters are float32 and keep the JAX package's layouts, so converted
 checkpoints need no transposes: conv kernels are [kd, kh, kw, Cin, Cout]
-in 3-D and [kh, kw, Cin, Cout] in 2-D; a block's spatial rank is its
-weight's rank less two.
+in 3-D and [kh, kw, Cin, Cout] in 2-D (a block's spatial rank is its
+weight's rank less two), Dense kernels [in, out].
 Each block computes in its ``dtype`` (float32 or bfloat16) by casting its
 input and weights explicitly, as the JAX blocks do; BatchNorm folding and
 biases stay float32. Kernels are initialised by ``config.init_type``
 (``nn.init``) from the ``torch.Generator`` the model passes in.
+
+``ScopeNames`` records on each module the name of its variables' scope in
+the JAX package's Flax tree (``{Class}_{i}``, counted per class in call
+order), which is how ``convert.py`` carries any network's weights across;
+each model's ``from_flax`` reads its widths from such a tree through
+``flax_conv_io``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from collections import Counter
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,8 +27,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv3d_bn_relu import conv2d_bn_relu, conv2d_k3s1, conv3d_bn_relu, conv3d_k3s1, fold_batchnorm
-from .init import bias_initializer, kernel_initializer
-from .norm import BatchNorm
+from .init import bias_initializer, kernel_initializer, lecun_normal
+from .norm import BatchNorm, InstanceNorm
 
 
 # ConvBlock.remat: None (no remat), or what the backward recomputes
@@ -43,54 +50,144 @@ def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator if generator is not None else torch.Generator().manual_seed(0)
 
 
-class TorchConv(nn.Module):
-    """Conv with bias over ``ndim`` spatial axes (3 or 2); ``weight`` is
-    [k, .., k, Cin, Cout].
+IntOrTuple = Union[int, Sequence[int]]
 
-    ``kernel_size=3`` is the k3 s1 p1 conv, run by ``conv3d_k3s1`` or
-    ``conv2d_k3s1``: the hand-written kernels on a card (forward, input
-    gradient and weight gradient), their plain versions on the CPU.
-    ``kernel_size=1`` is the pointwise conv of a head, one matmul over the
-    channels."""
+
+def _to_tuple(v: IntOrTuple, n: int) -> Tuple[int, ...]:
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(int(i) for i in v)
+    if len(t) != n:
+        raise ValueError(f"expected an int or a length-{n} tuple, got {t}")
+    return t
+
+
+class ScopeNames:
+    """Names the JAX package's Flax modules give the children they create:
+    ``{Class}_{i}``, counted per class in the order of creation. Calling it
+    on a module sets ``module.scope`` to the next name of the module's class
+    (the port names its classes as the JAX package does) and returns the
+    module."""
+
+    def __init__(self):
+        self._count = Counter()
+
+    def __call__(self, module: nn.Module) -> nn.Module:
+        cls = type(module).__name__
+        module.scope = f"{cls}_{self._count[cls]}"
+        self._count[cls] += 1
+        return module
+
+
+def flax_conv_io(params, *path: str) -> Tuple[int, int]:
+    """(Cin, Cout) of the conv kernel in the Flax scope ``path`` of a params
+    tree (its ``Conv_0`` child on XLA's conv route): what each model's
+    ``from_flax`` reads its widths from."""
+    for key in path:
+        params = params[key]
+    shape = params.get("Conv_0", params)["kernel"].shape
+    return int(shape[-2]), int(shape[-1])
+
+
+class TorchConv(nn.Module):
+    """Conv over ``ndim`` spatial axes (3 or 2) with torch's integer
+    padding, stride and dilation; ``weight`` is [k.., Cin, Cout], ``bias``
+    [Cout] or None (``use_bias=False``, as Flax leaves the parameter out).
+    ``padding=None`` is ``kernel_size // 2``.
+
+    The k3 s1 p1 d1 conv runs the hand-written kernels: in train mode
+    ``conv3d_k3s1`` / ``conv2d_k3s1`` (forward, input gradient and weight
+    gradient), in eval mode the eval conv ``conv3d_bn_relu`` /
+    ``conv2d_bn_relu`` with relu=False (the registered operator under
+    ``torch.export``); on the CPU their plain versions. A pointwise conv
+    (k1 s1 p0) is one matmul over the channels. Every other conv, which the
+    JAX package runs through XLA's convolution and no Pallas kernel, is
+    ``F.conv3d`` / ``F.conv2d``."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
         init_type: str = "none", generator: Optional[torch.Generator] = None,
-        ndim: int = 3, kernel_size: int = 3,
+        ndim: int = 3, kernel_size: IntOrTuple = 3, stride: IntOrTuple = 1,
+        padding: Optional[IntOrTuple] = None, dilation: IntOrTuple = 1, use_bias: bool = True,
     ):
         super().__init__()
-        if ndim not in (2, 3) or kernel_size not in (1, 3):
-            raise ValueError(f"TorchConv: ndim must be 2 or 3 and kernel_size 1 or 3, got {ndim}, {kernel_size}")
-        self.dtype, self.ndim, self.kernel_size = dtype, ndim, kernel_size
+        if ndim not in (2, 3):
+            raise ValueError(f"TorchConv: ndim must be 2 or 3, got {ndim}")
+        self.dtype, self.ndim = dtype, ndim
+        self.kernel_size = _to_tuple(kernel_size, ndim)
+        self.stride = _to_tuple(stride, ndim)
+        self.padding = tuple(k // 2 for k in self.kernel_size) if padding is None else _to_tuple(padding, ndim)
+        self.dilation = _to_tuple(dilation, ndim)
         gen = _generator(generator)
-        self.weight = nn.Parameter(kernel_initializer(init_type)((kernel_size,) * ndim + (cin, cout), gen))
-        self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
+        self.weight = nn.Parameter(kernel_initializer(init_type)(self.kernel_size + (cin, cout), gen))
+        if use_bias:
+            self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
+        else:
+            self.register_parameter("bias", None)
+        one = (1,) * ndim
+        self.hand_kernel = (self.kernel_size, self.stride, self.padding, self.dilation) == ((3,) * ndim, one, one, one)
+        self.pointwise = (self.kernel_size, self.stride, self.padding) == (one, one, (0,) * ndim)
+
+    def _bias(self, device: torch.device) -> torch.Tensor:
+        return self.bias if self.bias is not None else torch.zeros(self.weight.shape[-1], device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        if self.kernel_size == 1:
-            w = self.weight.reshape(self.weight.shape[-2:]).to(self.dtype)
-            return x @ w + self.bias.to(self.dtype)
-        conv = conv3d_k3s1 if self.ndim == 3 else conv2d_k3s1
-        return conv(x.contiguous(), self.weight, self.bias)
+        if self.hand_kernel:
+            if not self.training:
+                conv = conv3d_bn_relu if self.ndim == 3 else conv2d_bn_relu
+                w = self.weight.to(self.dtype).contiguous()
+                return conv(x.contiguous(), w, self._bias(x.device).float().contiguous(), relu=False)
+            conv = conv3d_k3s1 if self.ndim == 3 else conv2d_k3s1
+            return conv(x.contiguous(), self.weight, self._bias(x.device))
+        if self.pointwise:
+            y = x @ self.weight.reshape(self.weight.shape[-2:]).to(self.dtype)
+            return y if self.bias is None else y + self.bias.to(self.dtype)
+        conv = F.conv3d if self.ndim == 3 else F.conv2d
+        nd = self.ndim
+        w = self.weight.permute(nd + 1, nd, *range(nd)).to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = conv(x.movedim(-1, 1), w, b, self.stride, self.padding, self.dilation)
+        return y.movedim(1, -1)
+
+
+def _act(name: str):
+    """The JAX package's ``ConvBlock`` activations by name (prelu is a module)."""
+    acts = {
+        "relu": torch.relu,
+        "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+        "elu": F.elu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax's nn.gelu is the tanh form
+        "sigmoid": torch.sigmoid,
+        "tanh": torch.tanh,
+        "none": lambda x: x,
+    }
+    if name not in acts:
+        raise ValueError(f"unknown activation {name!r}")
+    return acts[name]
 
 
 class ConvBlock(nn.Module):
-    """Conv(k3, p1) -> BatchNorm -> ReLU over ``ndim`` spatial axes: the
-    block of UNet3D (3) and of UNet2D (2).
+    """Conv -> Norm -> Activation over ``ndim`` spatial axes, the JAX
+    package's ``ConvBlock``: by default Conv(k3, p1) -> BatchNorm -> ReLU, the
+    block of UNet3D (3) and of UNet2D (2); ``kernel_size`` / ``stride`` /
+    ``padding`` / ``dilation`` / ``use_bias`` go to its ``TorchConv``,
+    ``norm`` is batch | instance | none, ``act`` one of the JAX package's
+    (relu, leaky_relu, elu, gelu, sigmoid, tanh, none, prelu).
 
-    In eval mode BatchNorm is folded into the conv (in f32) and the block is
-    one ``conv3d_bn_relu`` or ``conv2d_bn_relu`` call: the CUDA kernel on a
-    card, its plain version on the CPU, and under ``torch.export`` the
-    registered operator that runs them. Train mode runs ``TorchConv`` (the
-    kernels with their gradients), then train-mode BatchNorm and ReLU with
-    autograd.
+    In eval mode the default block (k3 s1 p1 d1, batch, relu) folds
+    BatchNorm into the conv (in f32) and is one ``conv3d_bn_relu`` or
+    ``conv2d_bn_relu`` call: the CUDA kernel on a card, its plain version on
+    the CPU, and under ``torch.export`` the registered operator that runs
+    them; any other block runs its conv, norm and activation in turn. Train
+    mode runs ``TorchConv`` (the kernels with their gradients), then the
+    train-mode norm and the activation with autograd.
 
     ``remat`` (``remat_policy``: None, "full", "conv" or "dots") recomputes
     part of the train-mode block in the backward instead of keeping its
     activations (``torch.utils.checkpoint``): "full" keeps only the block's
     input and runs the conv kernel again; "conv" keeps the conv's output and
-    recomputes BatchNorm and ReLU. "dots" keeps what the JAX policy
+    recomputes the norm and activation. "dots" keeps what the JAX policy
     ``checkpoint_dots`` keeps of this block, the convolution's product: the
     conv kernel adds the bias in its epilogue, so that is "conv" here. The
     conv is a ctypes kernel inside an ``autograd.Function``, out of sight of
@@ -101,32 +198,65 @@ class ConvBlock(nn.Module):
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
         init_type: str = "none", generator: Optional[torch.Generator] = None, ndim: int = 3,
-        remat: Optional[str] = None,
+        remat: Optional[str] = None, kernel_size: IntOrTuple = 3, stride: IntOrTuple = 1,
+        padding: IntOrTuple = 1, dilation: IntOrTuple = 1, norm: str = "batch", act: str = "relu",
+        use_bias: bool = True,
     ):
         super().__init__()
         if remat not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {remat!r}")
-        self.dtype, self.remat = dtype, remat
-        self.conv = TorchConv(cin, cout, dtype, init_type, generator, ndim)
-        self.bn = BatchNorm(cout)
+        if norm not in ("batch", "instance", "none"):
+            raise ValueError(f"unknown norm {norm}")
+        self.dtype, self.remat, self.norm, self.act = dtype, remat, norm, act
+        self.conv = TorchConv(cin, cout, dtype, init_type, generator, ndim, kernel_size, stride, padding,
+                              dilation, use_bias)
+        self.conv.scope = "TorchConv_0"
+        if norm == "batch":
+            self.bn = BatchNorm(cout)
+            self.bn.scope = "BatchNorm_0"
+        elif norm == "instance":
+            self.inorm = InstanceNorm(dtype=dtype)
+        if act == "prelu":
+            self.prelu = PReLU()
+            self.prelu.scope = "PReLU_0"
+        else:
+            self._act_fn = _act(act)
+        self.folds = self.conv.hand_kernel and norm == "batch" and act == "relu"
 
-    def _bn_relu(self, y: torch.Tensor):
-        y, mean, var = self.bn.train_forward(y)
-        return torch.relu(y), mean, var
+    def _norm_act(self, y: torch.Tensor):
+        """(activation(norm(y)), BatchNorm's batch (mean, var) or None), train mode."""
+        stats = None
+        if self.norm == "batch":
+            y, mean, var = self.bn.train_forward(y)
+            stats = (mean, var)
+        elif self.norm == "instance":
+            y = self.inorm(y)
+        return self._activation(y), stats
+
+    def _activation(self, y: torch.Tensor) -> torch.Tensor:
+        return self.prelu(y) if self.act == "prelu" else self._act_fn(y)
 
     def _block(self, x: torch.Tensor):
-        return self._bn_relu(self.conv(x))
+        return self._norm_act(self.conv(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.remat is not None:
-            if self.remat == "full":
-                y, mean, var = checkpoint(self._block, x, use_reentrant=False, preserve_rng_state=False)
-            else:  # the conv's output is kept
-                y, mean, var = checkpoint(self._bn_relu, self.conv(x), use_reentrant=False, preserve_rng_state=False)
-            self.bn.update_running(mean, var, y.numel() // y.shape[-1])
-            return y
         if self.training:
-            return torch.relu(self.bn(self.conv(x)))
+            if self.remat == "full":
+                y, stats = checkpoint(self._block, x, use_reentrant=False, preserve_rng_state=False)
+            elif self.remat is not None:  # the conv's output is kept
+                y, stats = checkpoint(self._norm_act, self.conv(x), use_reentrant=False, preserve_rng_state=False)
+            else:
+                y, stats = self._block(x)
+            if stats is not None:
+                self.bn.update_running(*stats, y.numel() // y.shape[-1])
+            return y
+        if not self.folds:
+            y = self.conv(x)
+            if self.norm == "batch":
+                y = self.bn(y)
+            elif self.norm == "instance":
+                y = self.inorm(y)
+            return self._activation(y)
         w, b = fold_batchnorm(
             self.conv.weight, self.conv.bias, self.bn.weight, self.bn.bias,
             self.bn.running_mean, self.bn.running_var, self.bn.eps,
@@ -136,38 +266,128 @@ class ConvBlock(nn.Module):
 
 
 class TorchConvTranspose(nn.Module):
-    """ConvTranspose3d with kernel 2, stride 2, as one matmul and a pixel
-    shuffle. ``weight`` is [2, 2, 2, Cin, Cout] in the JAX convention,
-    which applies the kernel spatially flipped: torch's ConvTranspose3d
-    weight [Cin, Cout, kd, kh, kw] is ``weight.flip((0, 1, 2))`` permuted."""
+    """ConvTranspose with kernel = stride (2 for the U-Nets' up-convs, 4 for
+    CSR-Net's), no padding, over NDHWC: one matmul and a pixel shuffle, as
+    the JAX package's ``conv_transpose_matmul``. ``weight`` is [k, k, k,
+    Cin, Cout] in the JAX convention, which applies the kernel spatially
+    flipped: torch's ConvTranspose3d weight [Cin, Cout, kd, kh, kw] is
+    ``weight.flip((0, 1, 2))`` permuted."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
-        init_type: str = "none", generator: Optional[torch.Generator] = None,
+        init_type: str = "none", generator: Optional[torch.Generator] = None, kernel_size: int = 2,
     ):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.k = dtype, kernel_size
         gen = _generator(generator)
-        self.weight = nn.Parameter(kernel_initializer(init_type)((2, 2, 2, cin, cout), gen))
+        self.weight = nn.Parameter(kernel_initializer(init_type)((kernel_size,) * 3 + (cin, cout), gen))
         self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, d, h, w, cin = x.shape
-        cout = self.weight.shape[-1]
-        k = self.weight.flip((0, 1, 2)).permute(3, 0, 1, 2, 4).reshape(cin, 8 * cout)
-        y = x.to(self.dtype).reshape(-1, cin) @ k.to(self.dtype)
-        y = y.reshape(n, d, h, w, 2, 2, 2, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
-        return y.reshape(n, 2 * d, 2 * h, 2 * w, cout) + self.bias.to(self.dtype)
+        k, cout = self.k, self.weight.shape[-1]
+        kern = self.weight.flip((0, 1, 2)).permute(3, 0, 1, 2, 4).reshape(cin, k**3 * cout)
+        y = x.to(self.dtype).reshape(-1, cin) @ kern.to(self.dtype)
+        y = y.reshape(n, d, h, w, k, k, k, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
+        return y.reshape(n, k * d, k * h, k * w, cout) + self.bias.to(self.dtype)
 
 
-def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """MaxPool3d / MaxPool2d(window) with stride = window on NDHWC / NHWC
-    (floor output size), by x's rank."""
+class PReLU(nn.Module):
+    """torch ``nn.PReLU(num_parameters, init=0.25)`` on channels-last x:
+    one ``alpha`` or one per channel (the last axis)."""
+
+    def __init__(self, num_parameters: int = 1):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((num_parameters,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+class Dense(nn.Module):
+    """Flax ``nn.Dense``: ``x @ weight (+ bias)`` in ``dtype``, ``weight``
+    [in, out] drawn LeCun-normal (Flax's default), ``bias`` zero."""
+
+    def __init__(
+        self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None, use_bias: bool = True,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(lecun_normal((cin, cout), _generator(generator)))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(cout))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.dtype) @ self.weight.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """Dropout in train mode, inert in eval: each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p), as Flax's ``nn.Dropout``.
+    ``broadcast_dims`` share one draw along those axes (1, 2, 3 of NDHWC: a
+    channel is dropped whole, torch's ``Dropout3d``). The draws come from a
+    generator of this module on x's device, seeded from ``generator``."""
+
+    def __init__(self, p: float = 0.5, broadcast_dims: Sequence[int] = (),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p, self.broadcast_dims = float(p), tuple(broadcast_dims)
+        self.seed = int(torch.randint(0, 2**62, (1,), generator=_generator(generator)))
+        self._generators = {}
+
+    def _generator_on(self, device: torch.device) -> torch.Generator:
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(device=device).manual_seed(self.seed)
+        return self._generators[device]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p >= 1.0:
+            return torch.zeros_like(x)
+        shape = [1 if i in self.broadcast_dims else s for i, s in enumerate(x.shape)]
+        keep = torch.rand(shape, generator=self._generator_on(x.device), device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def max_pool(x: torch.Tensor, window: IntOrTuple = 2, stride: Optional[IntOrTuple] = None,
+             padding: IntOrTuple = 0) -> torch.Tensor:
+    """torch ``MaxPool3d`` / ``MaxPool2d`` on NDHWC / NHWC (by x's rank):
+    floor output size, padding with -inf; ``stride`` defaults to the
+    window. A window equal to its stride with no padding is a reshape and
+    a max."""
     n, *spatial, c = x.shape
-    out = [s // window for s in spatial]
-    x = x[(slice(None), *(slice(0, o * window) for o in out))]
-    split = [v for o in out for v in (o, window)]
-    return x.reshape(n, *split, c).amax(dim=tuple(range(2, 2 * len(out) + 1, 2)))
+    nd = len(spatial)
+    w = _to_tuple(window, nd)
+    s = w if stride is None else _to_tuple(stride, nd)
+    p = _to_tuple(padding, nd)
+    if w != s or any(p):
+        pool = F.max_pool3d if nd == 3 else F.max_pool2d
+        return pool(x.movedim(-1, 1), w, s, p).movedim(1, -1)
+    out = [size // k for size, k in zip(spatial, w)]
+    x = x[(slice(None), *(slice(0, o * k) for o, k in zip(out, w)))]
+    split = [v for o, k in zip(out, w) for v in (o, k)]
+    return x.reshape(n, *split, c).amax(dim=tuple(range(2, 2 * nd + 1, 2)))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the spatial axes, kept as size-1 axes: [N, 1.., C]."""
+    return x.mean(dim=tuple(range(1, x.dim() - 1)), keepdim=True)
+
+
+def resize_nearest(x: torch.Tensor, scale: IntOrTuple = 2) -> torch.Tensor:
+    """Nearest-neighbour upsampling of the spatial axes by integer factors
+    (torch ``Upsample(mode='nearest')``, the JAX ``jax.image.resize``
+    'nearest' at an integer scale): each voxel repeated ``scale`` times."""
+    n, *spatial, c = x.shape
+    s = _to_tuple(scale, len(spatial))
+    view = [n] + [v for size in spatial for v in (size, 1)] + [c]
+    expand = [n] + [v for size, k in zip(spatial, s) for v in (size, k)] + [c]
+    return x.reshape(view).expand(expand).reshape(n, *(size * k for size, k in zip(spatial, s)), c)
 
 
 def resize_linear_align_corners(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

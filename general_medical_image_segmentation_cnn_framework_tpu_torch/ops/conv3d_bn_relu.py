@@ -92,11 +92,13 @@ def fold_batchnorm(
 
 
 def _reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> torch.Tensor:
-    """``F.conv3d`` or ``F.conv2d`` (by x's rank) + bias (+ ReLU) in f32 on
-    channels-last x and [3, .., 3, Cin, Cout] w, cast to x's dtype."""
+    """``F.conv3d`` or ``F.conv2d`` (by x's rank) + bias (+ ReLU) in f32 (f64
+    for f64 x) on channels-last x and [3, .., 3, Cin, Cout] w, cast to x's
+    dtype."""
     nd = x.dim() - 2
     conv = F.conv3d if nd == 3 else F.conv2d
-    y = conv(x.float().movedim(-1, 1), w.float().permute(nd + 1, nd, *range(nd)), b.float(), padding=1)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    y = conv(x.to(dt).movedim(-1, 1), w.to(dt).permute(nd + 1, nd, *range(nd)), b.to(dt), padding=1)
     if relu:
         y = F.relu(y)
     return y.movedim(1, -1).to(x.dtype).contiguous()
@@ -121,8 +123,8 @@ def conv2d_bn_relu_reference(
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, nd: int) -> None:
     name = f"conv{nd}d_bn_relu"
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dtype not in _DTYPES and not (x.dtype == torch.float64 and x.device.type == "cpu"):
+        raise TypeError(f"{name}: x must be float32 or bfloat16 (or float64 on the CPU), got {x.dtype}")
     if x.dim() != nd + 2 or x.numel() == 0:
         layout = "[N,D,H,W,Cin]" if nd == 3 else "[N,H,W,Cin]"
         raise ValueError(f"{name}: x must be a non-empty {layout}, got {tuple(x.shape)}")
@@ -237,7 +239,7 @@ def conv3d_bn_relu(
 ) -> torch.Tensor:
     """y = [relu](conv3d_k3s1_same(x, w) + b), NDHWC in x's dtype.
 
-    x [N,D,H,W,Cin] float32 or bfloat16; w [3,3,3,Cin,Cout] in x's dtype
+    x [N,D,H,W,Cin] float32 or bfloat16 (or float64 on the CPU); w [3,3,3,Cin,Cout] in x's dtype
     (BN folded in); b float32 [Cout]. A CUDA tensor runs the CUDA kernel and
     adds one to ``conv3d_bn_relu.launches``; a CPU tensor runs
     ``conv3d_bn_relu_reference``; under ``torch.export`` the graph records

@@ -93,8 +93,9 @@ def split_k(rows: int, cout: int, voxels: int):
 
 def _check(x: torch.Tensor, g: torch.Tensor, nd: int) -> None:
     name = f"conv{nd}d_wgrad"
-    if x.dtype not in _DTYPES or g.dtype != x.dtype:
-        raise TypeError(f"{name}: x and g must both be float32 or bfloat16, got {x.dtype}, {g.dtype}")
+    if (x.dtype not in _DTYPES and not (x.dtype == torch.float64 and x.device.type == "cpu")) or g.dtype != x.dtype:
+        raise TypeError(f"{name}: x and g must both be float32 or bfloat16 (or float64 on the CPU), "
+                        f"got {x.dtype}, {g.dtype}")
     if (x.dim() != nd + 2 or g.dim() != nd + 2 or x.numel() == 0 or g.numel() == 0
             or x.shape[:-1] != g.shape[:-1]):
         dims = "N,D,H,W" if nd == 3 else "N,H,W"
@@ -144,7 +145,7 @@ def _launch(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dw f32 [3,3,3,Cin,Cout] of the k3 s1 SAME conv3d of x [N,D,H,W,Cin]
     for the output cotangent g [N,D,H,W,Cout]; x and g in one dtype,
-    float32 or bfloat16."""
+    float32 or bfloat16 (or float64 on the CPU: f64 dw)."""
     _check(x, g, 3)
     if x.device.type == "cpu":
         return conv3d_wgrad_reference(x, g)

@@ -280,7 +280,7 @@ def export_predictor(predictor: Predictor, spatial, path=None, batch_size: Optio
     }
 
     def forward(state):
-        return make_forward_fn(config, lambda tiles: torch.func.functional_call(model, state, (tiles,)))
+        return make_forward_fn(config, lambda *inputs: torch.func.functional_call(model, state, inputs))
 
     if predictor.whole_volume:
         pad = predictor.wv_pad

@@ -106,7 +106,7 @@ def test_eval_convblock2d_matches_jax():
     import jax.numpy as jnp
 
     from general_medical_image_segmentation_cnn_framework_tpu.nn.blocks import ConvBlock as FlaxConvBlock
-    from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import convblock_state_dict_from_flax
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import module_state_dict_from_flax
     from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import ConvBlock
     from test_torch_port_unet3d import random_variables
 
@@ -116,7 +116,7 @@ def test_eval_convblock2d_matches_jax():
     assert variables["params"]["TorchConv_0"]["Conv_0"]["kernel"].shape == (3, 3, 3, 8)
     want = np.asarray(block.apply(variables, jnp.asarray(x), train=False))
     port = ConvBlock(3, 8, ndim=2)
-    port.load_state_dict(convblock_state_dict_from_flax(variables["params"], variables["batch_stats"]))
+    port.load_state_dict(module_state_dict_from_flax(port, variables["params"], variables["batch_stats"]))
     got = port.eval()(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 

@@ -32,7 +32,7 @@ from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint impor
 from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
     convert_checkpoint,
     optimizer_state_from_optax,
-    unet3d_state_dict_from_flax,
+    state_dict_from_flax,
 )
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
 from test_torch_port_unet3d import jax_unet
@@ -70,7 +70,7 @@ def test_converted_optimizer_state_resumes_the_jax_step(case, tmp_path):
     src = tmp_path / "latest_checkpoint.ckpt"
     jax_save_checkpoint(src, params, variables["batch_stats"], opt_state, epoch=2)
     updates, _ = update(grads[2], opt_state, params)
-    want = unet3d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, optax.apply_updates(params, updates)))
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, optax.apply_updates(params, updates)))
 
     dst = tmp_path / "converted.pt"
     convert_checkpoint(src, dst)
@@ -82,7 +82,7 @@ def test_converted_optimizer_state_resumes_the_jax_step(case, tmp_path):
     assert all(group["lr"] == lr for group in optimizer.param_groups)
     if name == "adamw":
         assert [group["weight_decay"] for group in optimizer.param_groups] == [wd, 0.0]
-    g3 = unet3d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads[2]))
+    g3 = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads[2]))
     for n, p in model.named_parameters():
         p.grad = g3[n].clone()
     optimizer.step()

@@ -4,7 +4,8 @@ package's exported program on the same weights, f32 on the CPU (UNet3D at
 init_features=4, a 24x24x16 volume): the same masks, every eval conv in
 the graph the registered hand-kernel operator, the JAX meta's keys, a
 load with the port's model code blocked, the errors, and ``serving.main``
-in its export and ``serve_once`` modes."""
+in its export and ``serve_once`` modes; and ER-Net, a network of bare
+``TorchConv``s (no ConvBlock), exported by the whole volume."""
 
 import json
 import os
@@ -27,8 +28,10 @@ from general_medical_image_segmentation_cnn_framework_tpu.data.io import Volume,
 from general_medical_image_segmentation_cnn_framework_tpu_torch import models as port_models
 from general_medical_image_segmentation_cnn_framework_tpu_torch import serving
 from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint import save_checkpoint
+from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data.io import read_volume
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data.transforms import ZNormalization
+from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.er_net import ERNet
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.conv3d_bn_relu import NAMESPACE
 from test_torch_port_serving import BASE, predictors, raw_volume, weights  # noqa: F401 (weights: a fixture)
@@ -188,3 +191,35 @@ def test_main_serves_once(weights, tmp_path, monkeypatch):
     mask = read_volume(done["case-0.nii.gz"])
     want = predictors(weights, tmp_path)[1].predict_array(src)
     assert mask.data.dtype == np.float32 and np.array_equal(mask.data, want.astype(np.float32))
+
+
+def test_bare_torch_conv_network_exports(tmp_path):
+    """ER-Net (fixed widths, seeded weights and BatchNorm statistics)
+    is built from bare ``TorchConv`` + BatchNorm, whose eval conv is the
+    same registered operator as a folded ConvBlock's: its whole-volume
+    program on 16^3 exports with its 14 k3 convs as that operator and no
+    ATen conv, loads, and gives the Predictor's mask."""
+    model = ERNet(2, 1)
+    rng = np.random.default_rng(5)
+
+    def draw(name, shape):
+        if "running_var" in name or (name.endswith(".weight") and len(shape) == 1):  # BatchNorm's var and scale
+            return rng.uniform(0.5, 1.5, shape)
+        if len(shape) > 1:  # conv and Dense kernels [..., in, out]
+            return rng.normal(0.0, np.prod(shape[:-1]) ** -0.5, shape)
+        return rng.normal(0.0, 0.2, shape)  # biases, BatchNorm shifts and running means
+
+    state = {k: torch.from_numpy(draw(k, tuple(v.shape)).astype(np.float32)) for k, v in model.state_dict().items()}
+    config = compose(["config=er_net", "config.patch_size=16, 16, 16", "config.batch_size=1", "config.precision=float32",
+                      "config.whole_volume=true", "config.platform=cpu", f"config.output_dir={tmp_path}"],
+                     job_name="serve")
+    predictor = serving.Predictor(config, model=model, params=state)
+    src = raw_volume(shape=(16, 16, 16))
+    want = predictor.predict_array(src)
+    predict = serving.load_exported_predictor(serving.export_predictor(predictor, (16, 16, 16)))
+    targets = Counter(str(n.target) for n in predict.program.graph.nodes if n.op == "call_function")
+    assert targets[f"{NAMESPACE}.conv3d_bn_relu.default"] == 14
+    assert not [t for t in targets if "conv" in t and not t.startswith(NAMESPACE)], targets
+    got = predict(state, ZNormalization().normalize_array(src))
+    assert got.shape == (1, 16, 16, 16) and 0 < want.mean() < 1
+    assert got.tobytes() == want.tobytes()

@@ -4,7 +4,8 @@ forward and a train step of each on the CPU, the sliding window and the
 whole-volume forward under tta (and the mean-logits blend), train steps with the
 options of ``train.py`` (adamw with a clip, grad_accum, EMA, remat, focal
 and multiclass losses, sgd), a serving ``Predictor``, an export of its
-program and a load of it, and the offline filters; no source of the port or ``chip_smoke.py`` imports
+program and a load of it, the offline filters, and a forward of each of the nine 3-D networks of the
+zoo at a narrow width; no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
 card."""
 
@@ -95,6 +96,14 @@ assert mask.shape == (1, 20, 16, 18) and mask.dtype == np.int32
 exported = load_exported_predictor(export_predictor(predictor, (20, 16, 18)))
 assert (exported(served.state_dict(), ZNormalization().normalize_array(raw)) == mask).all()
 assert np.allclose(gaussian_low_pass(raw[0]) + gaussian_high_pass(raw[0]), raw[0], atol=1e-4)
+from {PORT}.models.registry import model_class
+zoo = {{"res_unet": (1, 2, 4), "vnet": (True, 1, 2), "highresnet": (1, 2), "csrnet": (1, 2, 4), "er_net": (2, 1),
+       "re_net": (1,), "IS": (1, 2, 4), "dunet": (1, 2, 8), "fusionnet": (1, 2, 4, 4)}}
+for network, args in zoo.items():
+    net = model_class(network)(*args).eval()
+    with torch.inference_mode():
+        y = make_forward(ConfigDict(network=network), net)(torch.randn(1, 16, 16, 16, 1))
+    assert y.shape == (1, 16, 16, 16, 2) and y.dtype == torch.float32 and torch.isfinite(y).all(), network
 blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded

@@ -32,8 +32,8 @@ from general_medical_image_segmentation_cnn_framework_tpu.config import ConfigDi
 from general_medical_image_segmentation_cnn_framework_tpu.nn.blocks import ConvBlock as FlaxConvBlock
 from general_medical_image_segmentation_cnn_framework_tpu_torch import optim
 from general_medical_image_segmentation_cnn_framework_tpu_torch import train as port_train
-from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import convblock_state_dict_from_flax
-from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import ConvBlock
+from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import module_state_dict_from_flax
+from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import ConvBlock, ScopeNames
 from test_torch_port_unet3d import random_variables
 
 STEPS, BATCH, PATCH = 3, 4, 8
@@ -49,7 +49,8 @@ class FlaxTwoBlocks(fnn.Module):
 class TwoBlocks(nn.Module):
     def __init__(self):
         super().__init__()
-        self.blocks = nn.ModuleList([ConvBlock(1, 4), ConvBlock(4, 2)])
+        names = ScopeNames()
+        self.blocks = nn.ModuleList([names(ConvBlock(1, 4)), names(ConvBlock(4, 2))])
 
     def forward(self, x):
         return self.blocks[1](self.blocks[0](x))
@@ -68,13 +69,8 @@ def _init(seed=21):
 
 
 def _state_dict(params, batch_stats=None):
-    sd = {}
-    for i in range(2):
-        stats = None if batch_stats is None else batch_stats[f"ConvBlock_{i}"]
-        block = convblock_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params[f"ConvBlock_{i}"]),
-                                               stats and jax.tree_util.tree_map(np.asarray, stats))
-        sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
-    return sd
+    as_numpy = functools.partial(jax.tree_util.tree_map, np.asarray)
+    return module_state_dict_from_flax(TwoBlocks(), as_numpy(params), batch_stats and as_numpy(batch_stats))
 
 
 def _batches(seed=22):

@@ -25,7 +25,7 @@ from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint impor
 from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
 from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
     convert_checkpoint,
-    unet3d_state_dict_from_flax,
+    state_dict_from_flax,
 )
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
 from test_torch_port_unet3d import jax_unet
@@ -63,7 +63,7 @@ def weights():
     """The f=4 UNet3D's seeded weights: the Flax model and variables, and
     the port's state dict of the same weights."""
     model, variables = jax_unet(4, seed=17)
-    return model, variables, unet3d_state_dict_from_flax(variables["params"], variables["batch_stats"])
+    return model, variables, state_dict_from_flax(variables["params"], variables["batch_stats"])
 
 
 @pytest.fixture(scope="module")

@@ -29,7 +29,7 @@ from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint impor
 from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
 from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
     convert_checkpoint,
-    unet3d_state_dict_from_flax,
+    state_dict_from_flax,
 )
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data import make_dataset
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data.device_prep import DevicePatchDataset
@@ -139,7 +139,7 @@ def test_one_train_step_gradients_match_jax():
         return loss_and_metric(pred, jnp.asarray(gt))[0]
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
-    want = unet3d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads))
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads))
     port = port_unet(variables, 4).train()
     got_loss, _ = port_train.make_loss_and_metric(CONFIG)(port(torch.from_numpy(x)), torch.from_numpy(gt))
     got_loss.backward()

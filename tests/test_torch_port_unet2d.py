@@ -1,5 +1,5 @@
 """The port's UNet2D against the JAX package's, with the same weights
-carried across by ``convert.unet2d_state_dict_from_flax``: logits in eval
+carried across by ``convert.state_dict_from_flax``: logits in eval
 and train mode, one train step's gradients and BatchNorm running
 statistics, bf16 mask agreement, the bilinear up with its pad-to-match,
 the registry and the head's init.
@@ -28,7 +28,7 @@ from general_medical_image_segmentation_cnn_framework_tpu.nn.blocks import (
 )
 from general_medical_image_segmentation_cnn_framework_tpu_torch import train as port_train
 from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
-from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import unet2d_state_dict_from_flax
+from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import state_dict_from_flax
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models import build_model, is_2d, make_forward
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.two_d.unet2d import UNet2D
 from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import resize_linear_align_corners
@@ -48,7 +48,7 @@ def jax_unet2d(dtype=jnp.float32, seed=0):
 
 def port_unet2d(variables, dtype=torch.float32):
     model = UNet2D(1, 2, dtype=dtype)
-    model.load_state_dict(unet2d_state_dict_from_flax(variables["params"], variables["batch_stats"]))
+    model.load_state_dict(state_dict_from_flax(variables["params"], variables["batch_stats"]))
     return model
 
 
@@ -111,7 +111,7 @@ def test_train_step_gradients_logits_and_running_stats_match_jax():
         return loss_and_metric(pred, jnp.asarray(gt))[0], (pred, updates)
 
     (loss, (pred, updates)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
-    want = unet2d_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads))
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads))
     port = port_unet2d(variables).train()
     got_pred = make_forward(CONFIG, port)(torch.from_numpy(x))
     got_loss, _ = port_train.make_loss_and_metric(CONFIG)(got_pred, torch.from_numpy(gt))

@@ -23,10 +23,10 @@ from general_medical_image_segmentation_cnn_framework_tpu.ops import pallas_conv
 from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint import load_checkpoint
 from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict
 from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
-    convblock_state_dict_from_flax,
     convert_checkpoint,
+    module_state_dict_from_flax,
     read_flax_msgpack,
-    unet3d_state_dict_from_flax,
+    state_dict_from_flax,
 )
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models import build_model
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
@@ -69,7 +69,7 @@ def jax_eval(model, variables, x):
 
 def port_unet(variables, f, dtype=torch.float32):
     model = UNet3D(1, 2, f, dtype=dtype)
-    model.load_state_dict(unet3d_state_dict_from_flax(variables["params"], variables["batch_stats"]))
+    model.load_state_dict(state_dict_from_flax(variables["params"], variables["batch_stats"]))
     return model.eval()
 
 
@@ -82,7 +82,7 @@ def test_eval_convblock_matches_jax(route, monkeypatch):
     want = jax_eval(block, variables, jnp.asarray(x))
 
     port = ConvBlock(3, 8)
-    port.load_state_dict(convblock_state_dict_from_flax(variables["params"], variables["batch_stats"]))
+    port.load_state_dict(module_state_dict_from_flax(port, variables["params"], variables["batch_stats"]))
     got = port.eval()(torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
 
@@ -158,7 +158,7 @@ def test_jax_checkpoint_converts_to_port_checkpoint(tmp_path):
     convert_checkpoint(src, dst)
     state = load_checkpoint(dst)
     assert state["epoch"] == 7
-    expected = unet3d_state_dict_from_flax(variables["params"], variables["batch_stats"])
+    expected = state_dict_from_flax(variables["params"], variables["batch_stats"])
     assert state["params"].keys() == expected.keys() == UNet3D(1, 2, 2).state_dict().keys()
     for k, v in expected.items():
         torch.testing.assert_close(state["params"][k], v, rtol=0, atol=0)
@@ -170,4 +170,4 @@ def test_registry_builds_unet3d_with_32_features_and_refuses_the_rest():
     assert model.blocks[0].conv.weight.shape == (3, 3, 3, 1, 32)
     assert model.blocks[0].conv.weight.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(ConfigDict(network="vnet", in_classes=1, out_classes=2))
+        build_model(ConfigDict(network="densenet", in_classes=1, out_classes=2))

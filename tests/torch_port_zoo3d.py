@@ -1,0 +1,422 @@
+"""Helpers of the ``test_torch_port_zoo3d_*.py`` files, which hold the
+port's 3-D zoo against the JAX package's in f32 (and f64) on the CPU.
+
+Blocks (``against_jax``): a block's output, input gradient and parameter
+gradients against the Flax block's, the weights carried by ``convert.py``'s
+map. Networks (``check_*``): nine 3-D networks with the same weights
+carried across by ``convert.py`` (the network and its widths told from the
+Flax tree). Each JAX tree comes from ``jax.eval_shape`` filled by seeded
+numpy draws (``fill``), and each JAX function runs once under ``jax.jit``
+(never eager ``model.init`` / ``model.apply``). The narrow widths:
+res_unet base_n_filter 4 at 32^3 (its four stride-2 convs leave 2^3),
+CSR-Net and IS init_features 4, Double U-Net 8 (coarse 4), FusionNet 4 and
+4 around the fixed-width V-Net, all at 16^3; V-Net, HighResNet, ER-Net and
+RE-Net have fixed widths.
+
+The JAX package needs flax, which the card's machine lacks (its only test
+here is the blocks' ``cuda`` case): the network checks' imports are made
+where flax is, and their files call ``pytest.importorskip("flax")`` first.
+"""
+
+import contextlib
+import functools
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint import load_checkpoint
+from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
+    convert_checkpoint,
+    model_for_tree,
+    module_state_dict_from_flax,
+    network_of,
+)
+from general_medical_image_segmentation_cnn_framework_tpu_torch.models import make_forward
+from general_medical_image_segmentation_cnn_framework_tpu_torch.models.registry import model_class
+from general_medical_image_segmentation_cnn_framework_tpu_torch.optim import make_optimizer
+
+if importlib.util.find_spec("flax") is not None:
+    import jax
+    import jax.numpy as jnp
+
+    from general_medical_image_segmentation_cnn_framework_tpu import train as jax_train
+    from general_medical_image_segmentation_cnn_framework_tpu.checkpoint import save_checkpoint
+    from general_medical_image_segmentation_cnn_framework_tpu.config import ConfigDict
+    from general_medical_image_segmentation_cnn_framework_tpu.models.three_d import (
+        csrnet, double_unet, er_net, fusionnet, highresnet, is_net, re_net, residual_unet3d, vnet3d,
+    )
+    from general_medical_image_segmentation_cnn_framework_tpu.nn import norm as jax_norm
+    from general_medical_image_segmentation_cnn_framework_tpu.ops.fft import band_split
+
+
+# -- blocks
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX side, imported only where flax is (the card's machine has none)."""
+    pytest.importorskip("flax")
+    import jax
+    import jax.numpy as jnp
+
+    return jax, jnp
+
+
+def rand(shape, seed, loc=0.0, scale=1.0):
+    return (loc + scale * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
+
+
+def fill(tree, seed):
+    """Seeded values for a Flax variable tree of shapes (as the zoo tests draw them)."""
+    rng = np.random.default_rng(seed)
+    draw = {
+        "kernel": lambda s: rng.normal(0.0, np.prod(s[:-1]) ** -0.5, s),
+        "bias": lambda s: rng.normal(0.0, 0.1, s), "scale": lambda s: rng.uniform(0.5, 1.5, s),
+        "mean": lambda s: rng.normal(0.0, 0.2, s), "var": lambda s: rng.uniform(0.5, 2.0, s),
+        "alpha": lambda s: rng.uniform(0.1, 0.4, s),
+    }
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else draw[k](v.shape).astype(np.float32) for k, v in t.items()}
+
+    return walk(dict(tree))
+
+
+def against_jax(jx, flax_module, port_module, x, seed=0, mutable=False, **apply_kw):
+    """Output, input gradient and parameter gradients of ``port_module``
+    (its weights from the Flax module's, seeded) against the Flax module's
+    for a seeded cotangent; returns (max |dy|, relative L2 of dx, worst
+    relative L2 of a parameter's gradient, or for one whose JAX gradient is
+    0 up to f32 noise its absolute L2 distance)."""
+    jax, jnp = jx
+    variables = fill(jax.eval_shape(lambda: flax_module.init(jax.random.PRNGKey(0), jnp.asarray(x), **apply_kw)), seed)
+    params, stats = variables.get("params", {}), variables.get("batch_stats")
+
+    def f(p, x):
+        v = {"params": p} if stats is None else {"params": p, "batch_stats": stats}
+        out = flax_module.apply(v, x, mutable=["batch_stats"] if mutable else False, **apply_kw)
+        return out[0] if mutable else out
+
+    y, vjp = jax.vjp(jax.jit(f), params, jnp.asarray(x))
+    ct = rand(y.shape, 10_000 + seed)  # drawn apart from x: a cotangent parallel to x hides what a norm removes
+    g_params, g_x = vjp(jnp.asarray(ct))
+    port_module.load_state_dict(module_state_dict_from_flax(port_module, params, stats))
+    xt = torch.from_numpy(x).requires_grad_()
+    yt = port_module(xt)
+    (yt * torch.from_numpy(ct)).sum().backward()
+    want = module_state_dict_from_flax(port_module, jax.tree_util.tree_map(np.asarray, g_params))
+    rel = []
+    for n, p in port_module.named_parameters():
+        diff, norm = float((p.grad - want[n]).norm()), float(want[n].norm())
+        # a bias that a norm removes has a true gradient of 0: its f32 noise is held absolute
+        rel.append(diff / norm if norm > 1e-4 else diff)
+    g_x = np.array(g_x)
+    dx = float((xt.grad - torch.from_numpy(g_x)).norm() / np.linalg.norm(g_x))
+    return float(np.abs(yt.detach().numpy() - np.asarray(y)).max()), dx, max(rel, default=0.0)
+
+
+# -- networks
+
+# case -> (config.network, the JAX module at a narrow width, spatial size)
+NETS = {
+    "res_unet": ("res_unet", lambda: residual_unet3d.ResidualUNet3D(1, 2, 4), 32),
+    "vnet": ("vnet", lambda: vnet3d.VNet(True, 1, 2), 16),
+    "highresnet": ("highresnet", lambda: highresnet.HighRes3DNet(1, 2), 16),
+    "csrnet": ("csrnet", lambda: csrnet.CSRNet(1, 2, 4), 16),
+    "er_net": ("er_net", lambda: er_net.ERNet(2, 1), 16),
+    "re_net": ("re_net", lambda: re_net.RENet(), 16),
+    "IS": ("IS", lambda: is_net.ISNet(1, 2, 4), 16),
+    "dunet": ("dunet", lambda: double_unet.DoubleUNet(1, 2, 8), 16),
+    "fusionnet": ("fusionnet", lambda: fusionnet.FusionNet(1, 2, 4, 4), 16),
+}
+
+
+def config_of(case):
+    return ConfigDict(network=NETS[case][0], in_classes=1, out_classes=2, loss="bce", optimizer="adam",
+                      init_lr=1e-3, precision="float32", grad_accum=1, pipeline_stages=0)
+
+
+def jax_args(case, x):
+    """The JAX model's inputs for the batch x, as the JAX drivers give them."""
+    return (x, *band_split(x, limit=0.04)) if NETS[case][0] == "IS" else (x,)
+
+
+@contextlib.contextmanager
+def conv_route(native):
+    """The JAX package's ``GMIST_NATIVE_CONV3D`` switch (read while tracing):
+    with ``native`` its TorchConv is XLA's own conv (params in a ``Conv_0``
+    child), which compiles faster than the default tap-grouped route."""
+    before = os.environ.pop("GMIST_NATIVE_CONV3D", None)
+    if native:
+        os.environ["GMIST_NATIVE_CONV3D"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("GMIST_NATIVE_CONV3D", None)
+        if before is not None:
+            os.environ["GMIST_NATIVE_CONV3D"] = before
+
+
+def compiled(native, f, *args, fast=True):
+    """``jax.jit(f)`` traced for ``args`` on the conv route ``native`` and
+    compiled, with ``fast`` at XLA's backend optimisation level 0: half the
+    compile on the CPU, f32 results within 1e-6 (not where V-Net's k5 convs
+    make the level-0 code slow to run)."""
+    with conv_route(native):
+        lowered = jax.jit(f).lower(*args)
+        return lowered.compile({"xla_backend_optimization_level": 0}) if fast else lowered.compile()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_model(case, native=False, seed=1):
+    """(module, variables) of the case: a Flax tree of the module's shapes
+    (traced, not compiled, on the conv route ``native``) filled from a
+    numpy seed: fan-in scaled kernels, and non-trivial BatchNorm statistics
+    and affine parameters, conv biases and PReLU slopes."""
+    module = NETS[case][1]()
+    s = NETS[case][2]
+    x = jnp.zeros((1, s, s, s, 1))
+    with conv_route(native):
+        shapes = jax.eval_shape(lambda: module.init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, *jax_args(case, x), train=False))
+    variables = fill(shapes, seed)
+    variables.setdefault("batch_stats", {})
+    return module, variables
+
+
+def batch(case, n=2, seed=5):
+    s = NETS[case][2]
+    return np.random.default_rng(seed).normal(size=(n, s, s, s, 1)).astype(np.float32)
+
+
+def port_model(case, variables):
+    """The port model of the tree's network and widths, with its weights."""
+    model = model_for_tree(variables["params"])
+    model.load_state_dict(module_state_dict_from_flax(model, variables["params"], variables["batch_stats"]))
+    return model
+
+
+def jax_logits(case, variables, x, native=False):
+    module = jax_model(case, native)[0]
+
+    def run(v, x):
+        out = module.apply(v, *jax_args(case, x), train=False)
+        return out[0] if isinstance(out, tuple) else out
+
+    x = jnp.asarray(x)
+    return np.asarray(compiled(native, run, variables, x, fast=not native)(variables, x))
+
+
+def check_eval_logits(case, native=False):
+    """Eval logits of the port (through ``models.make_forward``) against
+    JAX's: f32, atol 2e-4, rtol 1e-3 (the UNet3D test's bar)."""
+    _, variables = jax_model(case, native)
+    assert network_of(variables["params"]) == NETS[case][0]
+    x = batch(case)
+    want = jax_logits(case, variables, x, native)
+    model = port_model(case, variables).eval()
+    with torch.inference_mode():
+        got = make_forward(config_of(case), model)(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape == x.shape[:-1] + (2,)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+
+
+def check_checkpoint_converts(case, tmp_path, with_adam=True, native=False):
+    """A JAX msgpack ``.ckpt`` (with an Adam state whose mu and nu are
+    seeded draws, so that every tensor differs, or weights alone) converts
+    and loads:
+    the parameters and statistics map one to one (a shared module is one
+    port parameter), the optimizer's state loads into the port's Adam over
+    the model's parameters, and its exp_avg / exp_avg_sq are JAX's mu / nu."""
+    _, variables = jax_model(case, native)
+    opt_state = {}
+    if with_adam:
+        tx = jax_train.make_optimizer(config_of(case))
+        opt_state = jax.jit(tx.init)(variables["params"])
+        rng = np.random.default_rng(7)
+        mu, nu = (jax.tree_util.tree_map(lambda p: rng.uniform(0.1, 1.0, p.shape).astype(np.float32),
+                                         variables["params"]) for _ in range(2))
+        adam, *rest = opt_state.inner_state
+        opt_state = opt_state._replace(inner_state=(adam._replace(mu=mu, nu=nu), *rest))
+    src, dst = tmp_path / "latest_checkpoint.ckpt", tmp_path / "port.pt"
+    save_checkpoint(src, variables["params"], variables["batch_stats"], opt_state, epoch=3)
+    convert_checkpoint(src, dst)
+    state = load_checkpoint(dst)
+    model = port_model(case, variables)
+    assert state["epoch"] == 3 and state["optimizer"] == ("adam" if with_adam else None)
+    assert state["params"].keys() == model.state_dict().keys()
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(state["params"][k], v, rtol=0, atol=0)
+    if not with_adam:
+        return
+    optimizer = make_optimizer(config_of(case), model.parameters())
+    optimizer.load_state_dict(state["opt_state"])
+    want = {key: module_state_dict_from_flax(model, tree) for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu))}
+    for name, p in model.named_parameters():
+        for key, tensors in want.items():
+            torch.testing.assert_close(optimizer.state[p][key], tensors[name], rtol=0, atol=0)
+
+
+def check_registry(network):
+    """``build_model`` at the JAX ``from_config`` width (bf16 compute, f32
+    parameters) has the JAX model's parameter count, from the
+    ``jax.eval_shape`` tree of the JAX registry's model."""
+    from general_medical_image_segmentation_cnn_framework_tpu.models.registry import build_model as jax_build_model
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict as PortConfig
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models import build_model
+
+    config = dict(network=network, in_classes=1, out_classes=2, precision="bfloat16")
+    model = build_model(PortConfig(**config))
+    assert model.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters())
+    flax_model = jax_build_model(ConfigDict(**config))
+    x = jnp.zeros((1, 32, 32, 32, 1))
+    args = (x, x, x) if network == "IS" else (x,)
+    shapes = jax.eval_shape(lambda: flax_model.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, *args, train=False))
+    want = sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(shapes["params"]))
+    assert sum(p.numel() for p in model.parameters()) == want
+
+
+class _NoDropout:
+    """Stands in for ``flax.linen.Dropout`` in the train-step tests: the
+    identity (the port's rate is set to 0 on its side)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __call__(self, x, *args, **kwargs):
+        return x
+
+
+def _jax_step(case, module, variables, inputs, gt):
+    """(loss, batch_stats updates, gradients) of one JAX train step in f64:
+    the model's apply as ``train.py``'s ``make_forward`` calls it (train
+    mode, the first output) at an f64 compute dtype, with the norms' f32
+    statistics raised to f64 (``_NormsInF64``), and ``make_loss_and_metric``'s
+    binary BCE on the f32 logits the model returns; one jit on XLA's native
+    conv route at its default level (its level-0 f64 code runs several
+    times slower than it compiles faster)."""
+    as64 = functools.partial(jax.tree_util.tree_map, lambda a: np.asarray(a, np.float64))
+    module, variables, inputs = module.clone(dtype=jnp.float64), as64(variables), as64(inputs)
+    loss_and_metric = jax_train.make_loss_and_metric(config_of(case))
+
+    def loss_fn(params, gt, *inputs):
+        pred, updates = module.apply({"params": params, "batch_stats": variables["batch_stats"]}, *inputs,
+                                     train=True, rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
+        pred = pred[0] if isinstance(pred, tuple) else pred
+        return loss_and_metric(pred, gt)[0], updates
+
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as patch:
+        patch.setattr(jax_norm, "jnp", _NormsInF64())
+        args = (variables["params"], jnp.asarray(gt), *map(jnp.asarray, inputs))
+        (loss, updates), grads = compiled(True, jax.value_and_grad(loss_fn, has_aux=True), *args, fast=False)(*args)
+        return float(loss), jax.tree_util.tree_map(np.asarray, updates), jax.tree_util.tree_map(np.asarray, grads)
+
+
+def _port_step(case, model, inputs, gt):
+    """(loss, the model) after one port train step's forward and backward,
+    dropout off: ``models.make_forward``'s call (the first output) and the
+    train loop's ``make_loss_and_metric``."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import train as port_train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import Dropout
+
+    model.train()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    out = model(*(torch.from_numpy(t.copy()) for t in inputs))
+    loss, _ = port_train.make_loss_and_metric(config_of(case))(out[0] if isinstance(out, tuple) else out,
+                                                              torch.from_numpy(gt))
+    loss.backward()
+    return loss.item(), model
+
+
+def gradient_distances(model, jax_grads):
+    """{parameter: distance of the port's gradient to JAX's}: relative L2,
+    or, for a gradient JAX gives as 0 to within 1e-9 of the norm of all of
+    them (a conv bias in front of a norm, which removes any shift; IS's
+    second and third decoders and out2 head, which do not reach the loss),
+    the absolute L2 over that norm."""
+    want = module_state_dict_from_flax(model, jax_grads)
+    named = dict(model.named_parameters())
+    assert named.keys() == want.keys()
+    total = float(sum(w.double().square().sum() for w in want.values())) ** 0.5
+    out = {}
+    for name, w in want.items():
+        got = named[name].grad if named[name].grad is not None else torch.zeros_like(w)
+        diff, norm = float((got.double() - w.double()).norm()), float(w.double().norm())
+        out[name] = diff / norm if norm > 1e-9 * total else diff / total
+    return out
+
+
+class _NormsInF64:
+    """``jax.numpy`` as the JAX package's ``nn/norm.py`` sees it in the f64
+    step: its ``float32`` is float64, so that the norms' statistics, which
+    it computes in f32 whatever the input, follow the model's f64."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e-6):
+    """One train step of the port against the JAX package's (binary BCE;
+    IS with the same FFT bands on both sides, JAX's ``band_split``: the
+    port's is held to it in ``test_torch_port_zoo3d_layers.py``), dropout
+    off on both sides. The JAX step runs in f64 (``_jax_step``): the exact
+    value of the JAX function, up to the f32 logits and loss both packages
+    keep.
+
+    The port's f32 step: its loss within 1e-5 of JAX's, the BatchNorm
+    running statistics the forward leaves within ``stats_tol`` (rtol,
+    atol), and the gradient of every parameter together within 1e-2 in
+    relative L2 norm. The port's f64 step (the model built with an f64
+    compute dtype): every parameter's gradient on its own within
+    ``grad_tol`` of JAX's (``gradient_distances``).
+
+    Why the gradients are held leaf by leaf in f64: at these narrow widths
+    and small sizes (BatchNorm over as few as 4 values a channel at the
+    bottom of a U-Net) the step is so badly conditioned that f32 rounding
+    alone moves single parameters' gradients by parts in a thousand, in
+    either package. Measured against the f64 step: CSR-Net's f32 port
+    gradients up to 2.7e-3 off on a leaf, JAX's f32 1e-4 on its native conv
+    route and 1.2e-3 on its default one; ER-Net's f32 JAX gradients up to
+    8.5e-3 off, the port's 1.7e-5; res_unet's 2.4e-3 (JAX) and 6e-4
+    (port). Two JAX f32 compiles share such errors where they share the
+    arithmetic (its E[x^2] - E[x]^2 variance), so neither is a noise floor
+    for a leaf. In f64 the two packages' gradients agree leaf by leaf to
+    within 7e-8 (the f32 rounding of the parameters' gradients); a wiring
+    fault moves a leaf by order one."""
+    import flax.linen
+
+    monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    module, variables = jax_model(case, True)
+    x = batch(case, n=n, seed=12)
+    gt = (np.random.default_rng(13).uniform(size=x.shape) > 0.5).astype(np.float32)
+    inputs = [np.asarray(t) for t in jax_args(case, jnp.asarray(x))]
+    loss, updates, grads = _jax_step(case, module, variables, inputs, gt)
+
+    got, model = _port_step(case, port_model(case, variables), inputs, gt)
+    assert abs(got - loss) <= 1e-5 * loss
+    want = module_state_dict_from_flax(model, grads)
+    named = dict(model.named_parameters())
+    # IS's second and third decoders and its out2 head do not reach out1, the loss's logits: no gradient
+    diff = sum(float(((named[k].grad if named[k].grad is not None else 0.0) - w).square().sum())
+               for k, w in want.items())
+    norm = sum(float(w.square().sum()) for w in want.values())
+    assert (diff / norm) ** 0.5 <= 1e-2, (diff / norm) ** 0.5
+    want_state = module_state_dict_from_flax(model, variables["params"], updates.get("batch_stats", {}))
+    for k, v in model.state_dict().items():
+        if "running_" in k:
+            np.testing.assert_allclose(v.numpy(), want_state[k].numpy(), *stats_tol, err_msg=k)
+
+    model64 = model_class(NETS[case][0]).from_flax(variables["params"], dtype=torch.float64)
+    model64.load_state_dict(module_state_dict_from_flax(model64, variables["params"], variables["batch_stats"]))
+    _port_step(case, model64, [t.astype(np.float64) for t in inputs], gt)
+    distance = gradient_distances(model64, grads)
+    worst = max(distance, key=distance.get)
+    assert distance[worst] <= grad_tol, (worst, distance[worst])
+    return distance
