@@ -157,7 +157,8 @@ each of which stops the run with a non-zero exit when it fails:
    operator against the direct call (eager predict's), alternated: host
    microseconds per call, and UNet2D's sliding window on the card.
 15. The 3-D zoo at full width: res_unet, vnet, highresnet, csrnet, er_net,
-   re_net, IS, dunet and fusionnet, each at its JAX ``from_config`` width,
+   re_net, IS, dunet, fusionnet, densevoxelnet, densenet and fcn3d, each
+   at its JAX ``from_config`` width,
    bf16, Adam, device data on [10]'s two 256x256x128 volumes (those of
    [3]). ``train.main`` for 2 steps of 16 x 64^3: finite losses, and per
    step exactly the ``conv3d_bn_relu`` / ``conv3d_input_grad`` /
@@ -165,20 +166,33 @@ each of which stops the run with a non-zero exit when it fails:
    PERF.md section 6 derives them) and one of each loss kernel; a warm step
    by CUDA events and the peak memory. ``predict.main`` from that
    checkpoint on one 128x128x64 volume (reduced from 256x256x128 so that
-   nine gzip-9 mask writes fit the run): the mask's shape and the eval
+   twelve gzip-9 mask writes fit the run): the mask's shape and the eval
    convs a volume; the seconds end to end and of the sliding window alone
    on the card (for IS also, alternated with it, the window of a forward
-   that runs the bands' decoders too, which out1 does not read). Each k3 s1 p1 conv shape the nine bring at 16 x 64^3 and
+   that runs the bands' decoders too, which out1 does not read; densevoxelnet's
+   eval forward runs its first dense block alone, 12 of its 24 convs); fcn3d's
+   whole-volume forward over one 256x256x128 volume (its p60 stem makes
+   374x374x246 x 8 maps): its time, peak memory and 11 launches. Each k3 s1 p1 conv shape the twelve bring at 16 x 64^3 and
    its pooled sizes that UNet3D's 18 ([2], [6]) lack, the ragged stems
-   (Cin 3 and 4) among them, in bf16 against the plain versions with
+   (Cin 3 and 4), densevoxelnet's Cout-12 dense layers and fcn3d's 8->8 at
+   182^3 among them, in bf16 against the plain versions with
    [2]'s and [6]'s limits: forward, input gradient (not for a 1-channel
    stem, whose input is data) and weight gradient, with the kernel, plain,
    cuDNN and bound times. Each network at a narrow width (or its fixed
    one) on 32^3 in f32, card against CPU, logits within 1e-3 of their
    scale. ER-Net (bare TorchConvs) exported by the whole volume at
    128x128x64, loaded, the Predictor's mask with 14 eval conv launches.
+16. The 2-D zoo at full width: highres2dnet, segnet and unetpp at the
+   unet2d defaults (patch 1,128,128, batch 16, bf16, Adam, device data) on
+   [10]'s volumes: ``train.main`` for 2 steps with exactly the
+   ``conv2d_bn_relu`` / ``conv2d_input_grad`` / ``conv2d_wgrad`` launches of
+   the network's k3 s1 p1 convs (``ZOO2D``) and no 3-D conv; a warm step
+   by CUDA events and the peak memory; ``predict.main`` on one volume of
+   64 slices of 128^2 (the launches a batch, the mask); each new 2-D conv
+   shape against its plain version and cuDNN as in [15]; f32 logits card
+   against CPU on 2 x 1 x 64^2.
 
-Phases [3], [7], [10], [12], [13], [14] and [15]'s train, predict and serve runs are the main paths:
+Phases [3], [7], [10], [12], [13], [14], [15] and [16]'s train, predict and serve runs are the main paths:
 every launch counter is set to 0 just before each and read just after; a
 kernel's ``launches`` in the kernel line is the sum over all of them. The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
@@ -188,7 +202,7 @@ their device time per call at UNet3D's logits in [5] (the profiler's; up to
 their redesign it was the wrapper's time, host included), with their
 wrapper's time beside it as ``wrapper_ms`` and the largest error of the
 three shapes of [5]; the conv kernels' ``max_abs_err`` is the largest of
-[2], [6] and [15]. Bounds (``bound_ms``) are the larger of
+[2], [6] and [15] (the 2-D ones: [9] and [16]). Bounds (``bound_ms``) are the larger of
 the bytes the work must move (each input read once, each output written
 once) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (bf16 tensor cores)
 or 67 TFLOP/s (f32 on CUDA cores), the H100 SXM data-sheet peaks.
@@ -233,21 +247,27 @@ SMALL_VOLUME = (96, 96, 64)  # [13]'s f32 card-vs-CPU volume
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
-ZOO_VOLUME = (128, 128, 64)  # [15]'s predict volume, reduced from VOLUME so that nine gzip-9 mask writes fit
+ZOO_VOLUME = (128, 128, 64)  # [15]'s predict volume, reduced from VOLUME so that twelve gzip-9 mask writes fit
 ZOO_SAMPLES = 16  # [15]: 2 volumes x 16 patches = 2 train steps of 16
 # [15]: k3 s1 p1 conv launches of one train step (forward, input gradient, weight gradient) and of one
 # forward batch in predict (the first, but for IS, whose eval forward runs its encoder and first decoder
-# alone). The derivation is in PERF.md section 6.
+# alone, and densevoxelnet, whose eval forward runs its first dense block alone). The derivation is in
+# PERF.md section 6.
 ZOO = {
     "res_unet": (19, 18, 19, 19), "vnet": (0, 0, 0, 0), "highresnet": (7, 6, 7, 7), "csrnet": (18, 17, 18, 18),
     "er_net": (14, 13, 14, 14), "re_net": (14, 13, 14, 14), "IS": (54, 17, 18, 18), "dunet": (28, 27, 28, 28),
-    "fusionnet": (20, 19, 20, 20),
+    "fusionnet": (20, 19, 20, 20), "densevoxelnet": (24, 12, 12, 12), "densenet": (19, 18, 19, 19),
+    "fcn3d": (11, 11, 11, 11),
 }
 # [15]'s f32 card-vs-CPU models: the class's arguments at a narrow width (the fixed-width nets at theirs)
 ZOO_NARROW = {
     "res_unet": (1, 2, 8), "vnet": (True, 1, 2), "highresnet": (1, 2), "csrnet": (1, 2, 8), "er_net": (2, 1),
-    "re_net": (1,), "IS": (1, 2, 8), "dunet": (1, 2, 16), "fusionnet": (1, 2, 8, 8),
+    "re_net": (1,), "IS": (1, 2, 8), "dunet": (1, 2, 16), "fusionnet": (1, 2, 8, 8), "densevoxelnet": (1, 2),
+    "densenet": (1, 2), "fcn3d": (1, 2),
 }
+# [16]: the 2-D zoo's k3 s1 p1 conv launches (conv2d_*), as ZOO's; all three at their fixed widths
+ZOO2D = {"highres2dnet": (7, 6, 7, 7), "segnet": (26, 25, 26, 26), "unetpp": (59, 59, 59, 59)}
+ZOO2D_VOLUME = (64, SLICE, SLICE)  # [16]'s predict volume: 64 slices of 1 x 128 x 128, 4 batches of 16
 
 
 def cuda_ms(torch, fn, reps=10):
@@ -901,6 +921,81 @@ def serving_phase(torch, card, zero_counters, read_counters, unet2d_run, predict
         shutil.rmtree(work, ignore_errors=True)
 
 
+def new_shapes(torch, dev, tag, new, seen, nd, errs):
+    """The k3 s1 p1 conv shapes ``new`` ((Cin, Cout, spatial extent) of a
+    3-D or, with ``nd`` = 2, a 2-D conv, batch 16) that a phase's networks
+    bring and UNet3D's or UNet2D's do not, each in bf16 against its plain
+    version with [2]'s and [6]'s limits: forward, input gradient (not for a
+    1-channel stem, whose input is data) and weight gradient, with the
+    kernel, plain, cuDNN and bound times; the sums printed and each
+    direction's largest error folded into ``errs``."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_wgrad as wgrad_op
+
+    d = f"conv{nd}d"
+    kernel, plain = getattr(conv, f"{d}_bn_relu"), getattr(conv, f"{d}_bn_relu_reference")
+    dgrad, dgrad_plain = getattr(conv, f"{d}_input_grad"), getattr(conv, f"{d}_input_grad_reference")
+    wgrad, wgrad_plain = getattr(wgrad_op, f"{d}_wgrad"), getattr(wgrad_op, f"{d}_wgrad_reference")
+    library = getattr(torch.nn.functional, d)
+    library_input, library_weight = getattr(torch.nn.grad, f"{d}_input"), getattr(torch.nn.grad, f"{d}_weight")
+    gen = torch.Generator(device=dev).manual_seed(SEED + (16 if nd == 3 else 20))
+    sums = np.zeros((3, 4))
+    for cin, cout, s in new:
+        x = torch.randn(BATCH, *(s,) * nd, cin, device=dev, generator=gen).bfloat16()
+        g = torch.randn(BATCH, *(s,) * nd, cout, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(*(3,) * nd, cin, cout, device=dev, generator=gen) * (3**nd * cin) ** -0.5).bfloat16()
+        b = 0.1 * torch.randn(cout, device=dev, generator=gen)
+        xc, gc, wc = x.movedim(-1, 1), g.movedim(-1, 1), w.permute(nd + 1, nd, *range(nd)).contiguous()
+        flops, nbytes = conv_work(BATCH * s**nd, cin, cout, 2, taps=3**nd)
+        bound = bound_ms(flops, nbytes, "bfloat16")[0]
+        line = f"{tag} conv {cin:>4d}->{cout:<4d} {BATCH}x{s}^{nd} bf16"
+        check(x.numel() < INT32_ELEMENTS and g.numel() < INT32_ELEMENTS,  # [13]'s slab rule: none needs slabs
+              f"{tag} conv {cin}->{cout} at {s}^{nd}: {max(x.numel(), g.numel())} elements, past 2^31")
+        y = kernel(x, w, b, relu=False)
+        torch.cuda.synchronize()
+        want = plain(x.float(), w.float(), b, relu=False)
+        err, lim = (y.float() - want).abs().max().item(), BF16_TOL * max(1.0, want.abs().max().item())
+        check(err <= lim, f"{tag} conv {cin}->{cout} at {s}^{nd}: forward error {err} > {lim}")
+        errs["fwd"] = max(errs["fwd"], err)
+        t = (cuda_ms(torch, lambda: kernel(x, w, b, relu=False), 5),
+             cuda_ms(torch, lambda: plain(x, w, b, relu=False), 5),
+             cuda_ms(torch, lambda: library(xc, wc, b.bfloat16(), padding=1), 5), bound)
+        sums[0] += t
+        line += f" | fwd err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} bound {t[3]:.4f}"
+        del y, want
+        if cin > 1:  # a 1-channel stem's input is data: its input gradient is never taken
+            dx = dgrad(g, w)
+            torch.cuda.synchronize()
+            want = library_input((BATCH, cin, *(s,) * nd), w.float().permute(nd + 1, nd, *range(nd)),
+                                 g.float().movedim(-1, 1), padding=1).movedim(1, -1)
+            err, lim = (dx.float() - want).abs().max().item(), BF16_TOL * max(1.0, want.abs().max().item())
+            check(err <= lim, f"{tag} conv {cin}->{cout} at {s}^{nd}: input gradient error {err} > {lim}")
+            errs["dgrad"] = max(errs["dgrad"], err)
+            t = (cuda_ms(torch, lambda: dgrad(g, w), 5), cuda_ms(torch, lambda: dgrad_plain(g, w), 5),
+                 cuda_ms(torch, lambda: library_input((BATCH, cin, *(s,) * nd), wc, gc, padding=1), 5), bound)
+            sums[1] += t
+            line += f" | dgrad err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f}"
+            del dx, want
+        dw = wgrad(x, g)
+        torch.cuda.synchronize()
+        want = wgrad_plain(x.double(), g.double())
+        err, lim = (dw.double() - want).abs().max().item(), WGRAD_TOL * max(1.0, want.abs().max().item())
+        check(err <= lim, f"{tag} conv {cin}->{cout} at {s}^{nd}: weight gradient error {err} > {lim}")
+        errs["wgrad"] = max(errs["wgrad"], err)
+        t = (cuda_ms(torch, lambda: wgrad(x, g), 5), cuda_ms(torch, lambda: wgrad_plain(x, g), 5),
+             cuda_ms(torch, lambda: library_weight(xc, (cout, cin, *(3,) * nd), gc, padding=1), 5), bound)
+        sums[2] += t
+        line += f" | wgrad err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} (ms)"
+        print(line, flush=True)
+        del x, g, w, dw, want, xc, gc, wc
+        torch.cuda.empty_cache()
+    known = "UNet3D's 18" if nd == 3 else "UNet2D's 18"
+    print(f"{tag} {len(new)} conv shapes the networks add to {known} (of {seen}): sums kernel / plain / cudnn / "
+          f"bound ms: forward {' / '.join(f'{v:.3f}' for v in sums[0])}, input gradient "
+          f"{' / '.join(f'{v:.3f}' for v in sums[1])}, weight gradient {' / '.join(f'{v:.3f}' for v in sums[2])}",
+          flush=True)
+
+
 def zoo_state_dict(torch, model, seed):
     """Seeded weights for any zoo network: fan-in scaled kernels (std
     sqrt(1 / fan_in)), BatchNorm scales in [0.5, 1.5] and variances in
@@ -931,11 +1026,10 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
     from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict, serving, train
     from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
     from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, transforms
-    from general_medical_image_segmentation_cnn_framework_tpu_torch.models import make_forward
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models import make_forward, pad_multiple
     from general_medical_image_segmentation_cnn_framework_tpu_torch.models.registry import model_class
     from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import TorchConv
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv
-    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_wgrad as wgrad_op
     from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import sliding_window as sw
 
     t_phase = time.perf_counter()
@@ -1039,6 +1133,27 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
                 sw.sliding_window_predict(forward, vol, (PATCH,) * 3, OVERLAP, BATCH)
                 torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
+            if network == "fcn3d":  # the whole volume: its p60 stem pads 256x256x128 to 374x374x246 x 8 channels
+                big = sw.prepare_volume(transforms.ZNormalization().normalize_array(
+                    io.read_volume(data / "source" / "vol-00.nii.gz").data), dev, torch.bfloat16)
+                runs = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    zero_counters()
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        wmask = sw.whole_volume_predict(forward, big, pad_multiple=pad_multiple(network))
+                    torch.cuda.synchronize()
+                    runs.append(time.perf_counter() - t0)
+                    got = read_counters()
+                    check(got["conv3d_bn_relu"] == evals and tuple(wmask.shape) == VOLUME,
+                          f"[15] fcn3d whole volume: launches {got}, mask {tuple(wmask.shape)}")
+                whole_peak = torch.cuda.max_memory_allocated() / 2**30
+                print(f"[15] {card}: fcn3d's whole-volume forward over {'x'.join(map(str, VOLUME))} (bf16, batch 1): "
+                      f"{runs[0]:.4f} s cold, {runs[1]:.4f} s warm, peak memory {whole_peak:.3f} GiB, {evals} "
+                      "conv3d_bn_relu launches", flush=True)
+                del big, wmask
             both = ""
             if network == "IS":  # its eval forward (out1 alone) against one that also runs both bands, alternated
                 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.fft import band_split
@@ -1069,62 +1184,7 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
             [(1, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256), (256, 512),
              (512, 512), (512, 256), (256, 256), (256, 128), (128, 128), (128, 64), (64, 64), (64, 32), (32, 32)],
             LEVELS)}  # UNet3D's 18, checked in [2] and [6]
-        new = sorted(shapes - unet, key=lambda s: (-s[2], s[0], s[1]))
-        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-        sums = np.zeros((3, 4))
-        for cin, cout, s in new:
-            x = torch.randn(BATCH, s, s, s, cin, device=dev, generator=gen).bfloat16()
-            g = torch.randn(BATCH, s, s, s, cout, device=dev, generator=gen).bfloat16()
-            w = (torch.randn(3, 3, 3, cin, cout, device=dev, generator=gen) * (27 * cin) ** -0.5).bfloat16()
-            b = 0.1 * torch.randn(cout, device=dev, generator=gen)
-            xc, gc, wc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
-            flops, nbytes = conv_work(BATCH * s**3, cin, cout, 2)
-            bound = bound_ms(flops, nbytes, "bfloat16")[0]
-            line = f"[15] conv {cin:>4d}->{cout:<4d} {BATCH}x{s}^3 bf16"
-            y = conv.conv3d_bn_relu(x, w, b, relu=False)
-            torch.cuda.synchronize()
-            want = conv.conv3d_bn_relu_reference(x.float(), w.float(), b, relu=False)
-            err, lim = (y.float() - want).abs().max().item(), BF16_TOL * max(1.0, want.abs().max().item())
-            check(err <= lim, f"[15] conv {cin}->{cout} at {s}^3: forward error {err} > {lim}")
-            errs["fwd"] = max(errs["fwd"], err)
-            t = (cuda_ms(torch, lambda: conv.conv3d_bn_relu(x, w, b, relu=False), 5),
-                 cuda_ms(torch, lambda: conv.conv3d_bn_relu_reference(x, w, b, relu=False), 5),
-                 cuda_ms(torch, lambda: torch.nn.functional.conv3d(xc, wc, b.bfloat16(), padding=1), 5), bound)
-            sums[0] += t
-            line += f" | fwd err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} bound {t[3]:.4f}"
-            del y, want
-            if cin > 1:  # a 1-channel stem's input is data: its input gradient is never taken
-                dx = conv.conv3d_input_grad(g, w)
-                torch.cuda.synchronize()
-                want = torch.nn.grad.conv3d_input((BATCH, cin, s, s, s), w.float().permute(4, 3, 0, 1, 2),
-                                                  g.float().permute(0, 4, 1, 2, 3), padding=1).permute(0, 2, 3, 4, 1)
-                err, lim = (dx.float() - want).abs().max().item(), BF16_TOL * max(1.0, want.abs().max().item())
-                check(err <= lim, f"[15] conv {cin}->{cout} at {s}^3: input gradient error {err} > {lim}")
-                errs["dgrad"] = max(errs["dgrad"], err)
-                t = (cuda_ms(torch, lambda: conv.conv3d_input_grad(g, w), 5),
-                     cuda_ms(torch, lambda: conv.conv3d_input_grad_reference(g, w), 5),
-                     cuda_ms(torch, lambda: torch.nn.grad.conv3d_input((BATCH, cin, s, s, s), wc, gc, padding=1), 5),
-                     bound)
-                sums[1] += t
-                line += f" | dgrad err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f}"
-                del dx, want
-            dw = wgrad_op.conv3d_wgrad(x, g)
-            torch.cuda.synchronize()
-            want = wgrad_op.conv3d_wgrad_reference(x.double(), g.double())
-            err, lim = (dw.double() - want).abs().max().item(), WGRAD_TOL * max(1.0, want.abs().max().item())
-            check(err <= lim, f"[15] conv {cin}->{cout} at {s}^3: weight gradient error {err} > {lim}")
-            errs["wgrad"] = max(errs["wgrad"], err)
-            t = (cuda_ms(torch, lambda: wgrad_op.conv3d_wgrad(x, g), 5),
-                 cuda_ms(torch, lambda: wgrad_op.conv3d_wgrad_reference(x, g), 5),
-                 cuda_ms(torch, lambda: torch.nn.grad.conv3d_weight(xc, (cout, cin, 3, 3, 3), gc, padding=1), 5), bound)
-            sums[2] += t
-            line += f" | wgrad err {err:.3g} (limit {lim:.3g}) kernel {t[0]:.3f} plain {t[1]:.3f} cudnn {t[2]:.3f} (ms)"
-            print(line, flush=True)
-            del x, g, w, dw, want, xc, gc, wc
-        print(f"[15] {len(new)} conv shapes the zoo adds to UNet3D's 18 (of {len(shapes)}): sums kernel / plain / cudnn / "
-              f"bound ms: forward {' / '.join(f'{v:.3f}' for v in sums[0])}, input gradient "
-              f"{' / '.join(f'{v:.3f}' for v in sums[1])}, weight gradient {' / '.join(f'{v:.3f}' for v in sums[2])}",
-              flush=True)
+        new_shapes(torch, dev, "[15]", sorted(shapes - unet, key=lambda s: (-s[2], s[0], s[1])), len(shapes), 3, errs)
 
         # -- f32 card against CPU at a narrow width on 32^3
         rng = np.random.default_rng(SEED + 17)
@@ -1168,6 +1228,161 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
         print(f"[15] {card}: the zoo's warm step ms / peak GiB / predict s end to end / s on the card: "
               + "; ".join(f"{n} {r[0]:.1f} / {r[1]:.2f} / {r[2]:.2f} / {r[3]:.4f}" for n, r in rows.items())
               + f"; [15] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return errs
+
+
+def zoo2d_phase(torch, dev, card, zero_counters, read_counters, data):
+    """Phase [16]: the 2-D zoo at full width (see the module docstring).
+    Returns the largest bf16 error of each 2-D conv kernel at the new
+    shapes: {"fwd": e, "dgrad": e, "wgrad": e}."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, predict, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict, compose
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import io, transforms
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models import make_forward
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.registry import model_class
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models.two_d.unet2d import UNet2D
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import TorchConv
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import sliding_window as sw
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    errs = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    patch, overlap = (1, SLICE, SLICE), (0, 4, 36)  # OVERLAP clamped below the patch, as predict does
+    try:
+        small = work / "small"
+        write_volumes(small, io, ZOO2D_VOLUME, 1)
+        tiles = len(sw.grid_locations(ZOO2D_VOLUME, patch, overlap))
+        batches = -(-tiles // BATCH)
+        steps = N_VOLUMES * ZOO_SAMPLES // BATCH
+        shapes = set()  # (Cin, Cout, H) of the k3 s1 p1 convs at 128^2 slices
+        rows = {}
+        for network, (fwd, dgrad, wgrad, evals) in ZOO2D.items():
+            # -- train.main at full width, bf16, batch 16 x 1 x 128^2, Adam, device data
+            t0 = time.perf_counter()
+            train_argv = [
+                f"config={network}", f"config.data_path={data / 'source'}", f"config.gt_path={data / 'label'}",
+                f"config.output_dir={work / network}", f"config.patch_size=1, {SLICE}, {SLICE}",
+                f"config.batch_size={BATCH}", f"config.samples_per_volume={ZOO_SAMPLES}", "config.epochs=1",
+                "config.epochs_per_checkpoint=1000", "config.precision=bfloat16", "config.data_backend=device",
+                "config.optimizer=adam",
+            ]
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            out = train.main(train_argv)
+            torch.cuda.synchronize()
+            got = read_counters()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = {"conv2d_bn_relu": fwd * steps, "conv2d_input_grad": dgrad * steps, "conv2d_wgrad": wgrad * steps,
+                    "bce_dice_sums": steps, "bce_dice_grads": steps,
+                    "conv3d_bn_relu": 0, "conv3d_input_grad": 0, "conv3d_wgrad": 0}
+            check(got == want, f"[16] {network} train launches {got} != {want}")
+            (run,) = (work / network).glob("train-*/*")
+            losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+                      if line.startswith("Loss: ")]
+            check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"[16] {network} losses {losses}")
+            train_s = time.perf_counter() - t0
+
+            # warm steps of the entry point's train step (through the 2-D slice adapter), by CUDA events
+            net, opt = out["model"], out["optimizer"]
+            cfg = compose(train_argv, job_name="train", make_run_dir=False)
+            step = train.make_train_step(make_forward(cfg, net), opt, train.make_loss_and_metric(cfg))
+            gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+            xb = torch.randn(BATCH, *patch, 1, device=dev, generator=gen)
+            yb = (torch.rand(BATCH, *patch, 1, device=dev, generator=gen) > 0.7).float()
+            step(xb, yb)
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                step(xb, yb)
+            end.record()
+            end.synchronize()
+            step_ms = start.elapsed_time(end) / 2
+            step_peak = torch.cuda.max_memory_allocated() / 2**30
+
+            def record(module, args):
+                if module.hand_kernel:
+                    shapes.add((args[0].shape[-1], module.weight.shape[-1], args[0].shape[1]))
+
+            hooks = [m.register_forward_pre_hook(record) for m in net.modules() if isinstance(m, TorchConv)]
+            with torch.no_grad():
+                make_forward(cfg, net)(xb[:1])
+            for h in hooks:
+                h.remove()
+            n_params = sum(p.numel() for p in net.parameters())
+            del net, opt, out, step, xb, yb
+            torch.cuda.empty_cache()
+
+            # -- predict.main from that checkpoint on one volume of 64 slices of 128^2
+            pred_argv = [
+                f"config={network}", f"config.pred_data_path={small / 'source'}", f"config.pred_gt_path={small / 'label'}",
+                f"config.output_dir={work / network / 'pred'}", f"config.ckpt={run / 'latest_checkpoint.ckpt'}",
+                f"config.batch_size={BATCH}", "config.precision=bfloat16",
+            ]
+            zero_counters()
+            t0 = time.perf_counter()
+            predict.main(pred_argv)
+            torch.cuda.synchronize()
+            e2e = time.perf_counter() - t0
+            got = read_counters()
+            check(got["conv2d_bn_relu"] == evals * batches and not any(v for k, v in got.items() if k != "conv2d_bn_relu"),
+                  f"[16] {network} predict launches {got}, not {evals} x {batches} batches")
+            (mask_file,) = (work / network / "pred").glob("predict-*/*/pred_file/pred-*.nii.gz")
+            mask = io.read_volume(mask_file).data
+            check(mask.shape == (1, *ZOO2D_VOLUME) and set(np.unique(mask).tolist()) <= {0.0, 1.0},
+                  f"[16] {network} mask {mask.shape}")
+            pcfg = compose(pred_argv, job_name="predict", make_run_dir=False)
+            model = train.build_model(pcfg)
+            model.load_state_dict(checkpoint.load_checkpoint(run / "latest_checkpoint.ckpt")["params"])
+            model.to(dev).eval()
+            src = transforms.ZNormalization().normalize_array(io.read_volume(small / "source" / "vol-00.nii.gz").data)
+            vol = sw.prepare_volume(src, dev, torch.bfloat16)
+            forward = predict.make_forward_fn(pcfg, model)
+            with torch.inference_mode():
+                sw.sliding_window_predict(forward, vol, patch, overlap, BATCH)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sw.sliding_window_predict(forward, vol, patch, overlap, BATCH)
+                torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            del model, vol, forward
+            rows[network] = (step_ms, peak, step_peak, e2e, card_s)
+            print(f"[16] {card}: {network} ({n_params:,} parameters): train.main {steps} steps in {train_s:.1f} s, "
+                  f"losses {[round(v, 5) for v in losses]}, launches per step {fwd}/{dgrad}/{wgrad} (conv2d) + 1/1 "
+                  f"loss, no conv3d; warm step {step_ms:.3f} ms (bf16, {BATCH}x1x{SLICE}^2), peak memory {peak:.3f} GiB "
+                  f"(train.main), {step_peak:.3f} GiB (warm steps); predict.main on {'x'.join(map(str, ZOO2D_VOLUME))} "
+                  f"({tiles} slices, {batches} batches, {evals * batches} conv launches): {e2e:.3f} s end to end, "
+                  f"the sliding window on the card {card_s:.4f} s", flush=True)
+
+        # -- each new 2-D conv shape against its plain version, bf16 at batch 16
+        unet2d = {(ci, co, SLICE >> lv) for (ci, co), lv in zip(
+            [tuple(block.conv.weight.shape[2:]) for block in UNet2D(1, 2).blocks], LEVELS)}  # [9]'s 18
+        new_shapes(torch, dev, "[16]", sorted(shapes - unet2d, key=lambda s: (-s[2], s[0], s[1])), len(shapes), 2,
+                   errs)
+
+        # -- f32 card against CPU on a batch of 2 x 1 x 64^2
+        rng = np.random.default_rng(SEED + 22)
+        x64 = torch.from_numpy(rng.normal(size=(2, 1, 64, 64, 1)).astype(np.float32))
+        for network in ZOO2D:
+            net = model_class(network)(1, 2)
+            net.load_state_dict(zoo_state_dict(torch, net, SEED + 22))
+            forward = make_forward(ConfigDict(network=network), net.eval())
+            with torch.inference_mode():
+                want = forward(x64)
+                got = make_forward(ConfigDict(network=network), net.to(dev))(x64.to(dev)).cpu()
+            scale = max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            check(got.shape == want.shape == (2, 1, 64, 64, 2) and torch.isfinite(got).all().item(),
+                  f"[16] {network} f32 logits {tuple(got.shape)}")
+            check(err <= 1e-3 * scale, f"[16] {network} f32 logits card vs CPU: max|diff| {err} > {1e-3 * scale}")
+            print(f"[16] {network} f32 logits on 2x1x64^2, card vs CPU: max|diff| {err:.3g} (scale {scale:.3g})",
+                  flush=True)
+            del net
+        print(f"[16] {card}: the 2-D zoo's warm step ms / peak GiB (train.main) / predict s end to end / s on the "
+              "card: " + "; ".join(f"{n} {r[0]:.1f} / {r[1]:.2f} / {r[3]:.2f} / {r[4]:.4f}" for n, r in rows.items())
+              + f"; [16] took {time.perf_counter() - t_phase:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return errs
@@ -2114,6 +2329,10 @@ def main() -> None:
     zoo_errs = zoo_phase(torch, dev, card, zero_counters, read_counters, unet2d_run[0] / "data")
     max_err, dgrad_err, wgrad_err = (max(max_err, zoo_errs["fwd"]), max(dgrad_err, zoo_errs["dgrad"]),
                                      max(wgrad_err, zoo_errs["wgrad"]))
+
+    # -- 16. the 2-D zoo at full width: train, predict, new conv shapes, card vs CPU
+    zoo2d_errs = zoo2d_phase(torch, dev, card, zero_counters, read_counters, unet2d_run[0] / "data")
+    err2d = {key: max(err2d[key], zoo2d_errs[key]) for key in err2d}
 
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",

@@ -10,7 +10,9 @@ each port module that owns variables records the Flax scope they sit in
 (TorchConv, TorchConvTranspose, BatchNorm, InstanceNorm, PReLU, Dense, and
 UNet3D's 1x1x1 head, an ``nn.Linear`` that takes the kernel transposed)
 read their Flax names. A module used twice (res_unet's shared convs, IS's
-shared encoder) is one port module in one Flax scope: one set of weights.
+shared encoder) is one port module in one Flax scope: one set of weights;
+SkipDenseNet3D's grouped transposed conv is one port module over the JAX
+one's per-group scopes.
 ``network_of`` tells the network from the tree's top-level scopes (those
 of the ported networks all differ); ``model_for_tree`` builds the port
 model of the tree's widths by the class's ``from_flax``.
@@ -59,16 +61,22 @@ def _t(a) -> torch.Tensor:
 def _leaf_from_flax(module: torch.nn.Module, params: Mapping, stats: Optional[Mapping]) -> Dict[str, torch.Tensor]:
     """The tensors a leaf module owns, from its Flax scope: a conv's
     ``kernel`` and ``bias`` (directly, or in the ``Conv_0`` child of XLA's
-    route), a 1x1x1 conv's kernel [1, 1, 1, Cin, Cout] as an
-    ``nn.Linear``'s [Cout, Cin] weight, BatchNorm's ``scale``/``bias`` and
-    ``mean``/``var`` statistics, an affine InstanceNorm's ``scale``/``bias``,
-    PReLU's ``alpha``, Dense's ``kernel``/``bias``; nothing for any other
-    module."""
+    route), a grouped transposed conv's groups' kernels (its scope's
+    ``TorchConvTranspose_{g}``) concatenated along Cin, a 1x1x1 conv's
+    kernel [1, 1, 1, Cin, Cout] as an ``nn.Linear``'s [Cout, Cin] weight,
+    BatchNorm's ``scale``/``bias`` and ``mean``/``var`` statistics, an
+    affine InstanceNorm's ``scale``/``bias``, PReLU's ``alpha``, Dense's
+    ``kernel``/``bias``; the parameters a module names in ``flax_params``
+    (UNet++'s ``mix``) under their own names; nothing else."""
     from .nn.blocks import Dense, PReLU, TorchConv, TorchConvTranspose
     from .nn.norm import BatchNorm, InstanceNorm
 
-    sd = {}
-    if isinstance(module, (TorchConv, TorchConvTranspose, Dense)):
+    sd = {name: _t(params[name]) for name in getattr(module, "flax_params", ())}
+    if isinstance(module, TorchConvTranspose) and module.groups > 1:
+        sd["weight"] = _t(np.concatenate(
+            [np.asarray(params[f"TorchConvTranspose_{g}"]["kernel"], dtype=np.float32) for g in range(module.groups)],
+            axis=-2))
+    elif isinstance(module, (TorchConv, TorchConvTranspose, Dense)):
         p = params.get("Conv_0", params)
         sd["weight"] = _t(p["kernel"])
         if module.bias is not None:
@@ -115,8 +123,17 @@ def module_state_dict_from_flax(
 _SIGNATURES = (
     ("IS", "_Encoder_0"), ("dunet", "_UNet3Level_0"), ("fusionnet", "UNet3D_0"),
     ("highresnet", "DilationBlock_0"), ("vnet", "_NConvs_0"), ("res_unet", "_NormLReluConv_0"),
-    ("er_net", "SFDecoder_0"), ("re_net", "ResEncoder_0"),
+    ("er_net", "SFDecoder_0"), ("re_net", "ResEncoder_0"), ("densenet", "_GroupedConvTranspose_0"),
+    ("densevoxelnet", "_DenseLayer_0"), ("fcn3d", "_BilinearDeconv_0"), ("unetpp", "_BasicBlock_0"),
+    ("segnet", "ConvBlock_24"),
 )
+
+
+def _conv_rank(params: Mapping, *path: str) -> int:
+    """The rank of the conv kernel in the Flax scope ``path``: 5 in 3-D, 4 in 2-D."""
+    for key in path:
+        params = params[key]
+    return len(params.get("Conv_0", params)["kernel"].shape)
 
 
 def network_of(params: Mapping) -> str:
@@ -126,10 +143,11 @@ def network_of(params: Mapping) -> str:
     keys = set(params) if isinstance(params, Mapping) else set()
     for network, key in _SIGNATURES:
         if key in keys:
+            if network == "highresnet" and _conv_rank(params, "ConvolutionalBlock_0", "TorchConv_0") == 4:
+                return "highres2dnet"
             return network
     if "ConvBlock_17" in keys and isinstance(params["ConvBlock_0"], Mapping):
-        conv = params["ConvBlock_0"]["TorchConv_0"]
-        if len(conv.get("Conv_0", conv)["kernel"].shape) == 4:  # [3, 3, Cin, Cout]
+        if _conv_rank(params, "ConvBlock_0", "TorchConv_0") == 4:  # [3, 3, Cin, Cout]
             return "unet2d"
         if "Conv_0" in keys:
             return "unet"

@@ -1,7 +1,9 @@
 """``config.network`` -> model. Ported so far: ``unet`` (UNet3D), ``unet2d``
-(UNet2D) and nine of the 3-D zoo: ``res_unet``, ``vnet``, ``highresnet``,
-``csrnet``, ``er_net``, ``re_net``, ``IS``, ``dunet``, ``fusionnet``, each
-at its JAX ``from_config`` width."""
+(UNet2D), twelve of the 3-D zoo (``res_unet``, ``vnet``, ``highresnet``,
+``csrnet``, ``er_net``, ``re_net``, ``IS``, ``dunet``, ``fusionnet``,
+``densevoxelnet``, ``densenet``, ``fcn3d``) and three 2-D nets
+(``highres2dnet``, ``segnet``, ``unetpp``), each at its JAX
+``from_config`` width."""
 
 from __future__ import annotations
 
@@ -31,10 +33,15 @@ _MODELS = {
     "IS": ("three_d.is_net", "ISNet"),
     "dunet": ("three_d.double_unet", "DoubleUNet"),
     "fusionnet": ("three_d.fusionnet", "FusionNet"),
+    "densevoxelnet": ("three_d.densevoxelnet3d", "DenseVoxelNet"),
+    "densenet": ("three_d.densenet3d", "SkipDenseNet3D"),
+    "fcn3d": ("three_d.fcn3d", "FCN3D"),
+    "highres2dnet": ("two_d.highresnet2d", "HighRes2DNet"),
+    "segnet": ("two_d.segnet", "SegNet"),
+    "unetpp": ("two_d.unetpp", "UNetPlusPlus"),
 }
 # the JAX package's networks still to be ported (ROADMAP queue 1 item 11)
-UNPORTED = ("densevoxelnet", "densenet", "fcn3d", "unetr", "vtnet", "unetpp", "segnet", "fcn2d", "deeplab",
-            "pspnet", "miniseg", "highres2dnet")
+UNPORTED = ("fcn2d", "deeplab", "pspnet", "miniseg", "unetr", "vtnet")
 
 
 def is_2d(network: str) -> bool:
@@ -44,7 +51,10 @@ def is_2d(network: str) -> bool:
 # Total spatial downsampling factor per 3-D network: whole-volume
 # inference pads each spatial dim to this multiple so every pool/merge
 # divides cleanly (and the decoder's upsamples line back up with skips).
-# The JAX package's table, models/registry.py there.
+# The JAX package's table, models/registry.py there. The default 16 also
+# serves densevoxelnet (its stem and pool halve twice), densenet (its down
+# conv and three transitions, four halvings) and fcn3d (its pools and crops
+# fit every multiple of 16 from 32 on).
 _PAD_MULTIPLE = {
     "vtnet": 32,  # k4s4 embed x 3 PatchMergings (H/W); windows self-pad
     "unetr": 16,  # k16s16 patch embed
@@ -98,7 +108,8 @@ def make_forward(config, model: nn.Module) -> Callable:
     other two decoders and the second head feed nothing it returns); a
     2-D network runs on ``x[:, 0]`` (D must be 1), its logits
     (the first element of a tuple) get the depth axis back; any other 3-D
-    network is the model itself."""
+    network is the model itself (DenseVoxelNet returns its auxiliary
+    ``y2``, and in eval runs only what ``y2`` needs)."""
     if config.network == "IS":
         from ..ops.fft import band_split
 

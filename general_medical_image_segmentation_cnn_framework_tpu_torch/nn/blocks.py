@@ -266,30 +266,65 @@ class ConvBlock(nn.Module):
 
 
 class TorchConvTranspose(nn.Module):
-    """ConvTranspose with kernel = stride (2 for the U-Nets' up-convs, 4 for
-    CSR-Net's), no padding, over NDHWC: one matmul and a pixel shuffle, as
-    the JAX package's ``conv_transpose_matmul``. ``weight`` is [k, k, k,
-    Cin, Cout] in the JAX convention, which applies the kernel spatially
-    flipped: torch's ConvTranspose3d weight [Cin, Cout, kd, kh, kw] is
-    ``weight.flip((0, 1, 2))`` permuted."""
+    """ConvTranspose over ``ndim`` spatial axes (3 or 2) with torch's output
+    size, (in - 1) * stride - 2 * padding + kernel, as the JAX package's
+    ``TorchConvTranspose``. ``weight`` is [k.., Cin, Cout / groups] in the
+    JAX convention, which applies the kernel spatially flipped: torch's
+    ConvTranspose weight [Cin, Cout / groups, k..] is ``weight`` flipped
+    over its spatial axes and permuted. ``stride`` defaults to the kernel.
+
+    With ``groups`` g, input channels i * Cin/g ... and output channels
+    i * Cout/g ... form group i: the JAX package's ``_GroupedConvTranspose``
+    (SkipDenseNet3D's heads), one ``TorchConvTranspose`` a group, whose
+    [k.., Cin/g, Cout/g] kernels ``weight`` holds concatenated along Cin,
+    each drawn as its own kernel.
+
+    Kernel = stride with no padding, ungrouped, in 3-D (the U-Nets' k2 s2
+    up-convs, CSR-Net's k4 s4) is one matmul and a pixel shuffle, as the
+    JAX package's ``conv_transpose_matmul``; every other one is
+    ``F.conv_transpose3d`` / ``F.conv_transpose2d`` (XLA's transposed conv,
+    or its phased form, in the JAX package)."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
-        init_type: str = "none", generator: Optional[torch.Generator] = None, kernel_size: int = 2,
+        init_type: str = "none", generator: Optional[torch.Generator] = None, kernel_size: IntOrTuple = 2,
+        stride: Optional[IntOrTuple] = None, padding: IntOrTuple = 0, groups: int = 1, use_bias: bool = True,
+        ndim: int = 3,
     ):
         super().__init__()
-        self.dtype, self.k = dtype, kernel_size
+        if ndim not in (2, 3):
+            raise ValueError(f"TorchConvTranspose: ndim must be 2 or 3, got {ndim}")
+        if cin % groups or cout % groups:
+            raise ValueError(f"TorchConvTranspose: groups={groups} must divide Cin={cin} and Cout={cout}")
+        self.dtype, self.ndim, self.groups = dtype, ndim, groups
+        self.kernel_size = _to_tuple(kernel_size, ndim)
+        self.stride = self.kernel_size if stride is None else _to_tuple(stride, ndim)
+        self.padding = _to_tuple(padding, ndim)
         gen = _generator(generator)
-        self.weight = nn.Parameter(kernel_initializer(init_type)((kernel_size,) * 3 + (cin, cout), gen))
-        self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
+        init = kernel_initializer(init_type)
+        shape = self.kernel_size + (cin // groups, cout // groups)
+        self.weight = nn.Parameter(torch.cat([init(shape, gen) for _ in range(groups)], dim=-2))
+        if use_bias:
+            self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
+        else:
+            self.register_parameter("bias", None)
+        self.matmul = (ndim == 3 and groups == 1 and self.kernel_size == self.stride and not any(self.padding))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, d, h, w, cin = x.shape
-        k, cout = self.k, self.weight.shape[-1]
-        kern = self.weight.flip((0, 1, 2)).permute(3, 0, 1, 2, 4).reshape(cin, k**3 * cout)
-        y = x.to(self.dtype).reshape(-1, cin) @ kern.to(self.dtype)
-        y = y.reshape(n, d, h, w, k, k, k, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
-        return y.reshape(n, k * d, k * h, k * w, cout) + self.bias.to(self.dtype)
+        x = x.to(self.dtype)
+        nd = self.ndim
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        if self.matmul:
+            n, d, h, w, cin = x.shape
+            (k, _, _), cout = self.kernel_size, self.weight.shape[-1]
+            kern = self.weight.flip((0, 1, 2)).permute(3, 0, 1, 2, 4).reshape(cin, k**3 * cout)
+            y = x.reshape(-1, cin) @ kern.to(self.dtype)
+            y = y.reshape(n, d, h, w, k, k, k, cout).permute(0, 1, 4, 2, 5, 3, 6, 7)
+            y = y.reshape(n, k * d, k * h, k * w, cout)
+            return y if bias is None else y + bias
+        w = self.weight.flip(tuple(range(nd))).permute(nd, nd + 1, *range(nd)).to(self.dtype)
+        conv = F.conv_transpose3d if nd == 3 else F.conv_transpose2d
+        return conv(x.movedim(-1, 1), w, bias, self.stride, self.padding, groups=self.groups).movedim(1, -1)
 
 
 class PReLU(nn.Module):
@@ -374,6 +409,38 @@ def max_pool(x: torch.Tensor, window: IntOrTuple = 2, stride: Optional[IntOrTupl
     return x.reshape(n, *split, c).amax(dim=tuple(range(2, 2 * nd + 1, 2)))
 
 
+def max_pool_ceil(x: torch.Tensor) -> torch.Tensor:
+    """torch ``MaxPool3d(2, 2, ceil_mode=True)`` (``MaxPool2d`` on NHWC) on
+    channels-last x, FCN3D's ``_ceil_pool`` in the JAX package: an odd axis
+    keeps its last element in a window of one. JAX pads with -inf and runs
+    XLA's window max, whose gradient goes wholly to the first maximum of a
+    window in scan order; torch's max pool gives it to the same one (its
+    ``amax`` would split a tie)."""
+    pool = F.max_pool3d if x.dim() == 5 else F.max_pool2d
+    return pool(x.movedim(-1, 1), 2, 2, ceil_mode=True).movedim(1, -1)
+
+
+def max_pool_with_mask(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2x2 stride-2 max pool of NHWC x and a one-hot window mask
+    [B, H/2, W/2, 4, C] of each window's first maximum, SegNet's pooling
+    with indices, as the JAX package's: the windows by reshape, their
+    ``amax`` (a tie's gradient split evenly, as ``jnp.max``'s), and the
+    equality mask kept at its first match by a cumulative sum."""
+    b, h, w, c = x.shape
+    windows = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4, c)
+    pooled = windows.amax(dim=3)
+    mask = (windows == pooled.unsqueeze(3)).to(x.dtype)
+    return pooled, mask * (mask.cumsum(dim=3) == 1).to(x.dtype)
+
+
+def max_unpool_with_mask(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``max_pool_with_mask``: each value of NHWC x placed
+    at its window's masked slot, zeros elsewhere ([B, 2H, 2W, C])."""
+    b, h, w, c = x.shape
+    windows = x.unsqueeze(3) * mask
+    return windows.reshape(b, h, w, 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over the spatial axes, kept as size-1 axes: [N, 1.., C]."""
     return x.mean(dim=tuple(range(1, x.dim() - 1)), keepdim=True)
@@ -398,4 +465,18 @@ def resize_linear_align_corners(x: torch.Tensor, shape: Sequence[int]) -> torch.
     rounds once; the JAX package lerps in bf16)."""
     mode = "bilinear" if x.dim() == 4 else "trilinear"
     y = F.interpolate(x.movedim(-1, 1), size=tuple(int(s) for s in shape), mode=mode, align_corners=True)
+    return y.movedim(1, -1)
+
+
+def resize_linear(x: torch.Tensor, scale: IntOrTuple = 2, shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Bi- / trilinear resize of the spatial axes of NHWC / NDHWC x by
+    ``scale`` or to ``shape``, half-pixel centres (torch ``interpolate``
+    with ``align_corners=False``): the JAX package's ``resize_linear``
+    (``jax.image.resize`` 'linear' without antialiasing) wherever it
+    upsamples."""
+    spatial = x.shape[1:-1]
+    if shape is None:
+        shape = tuple(size * k for size, k in zip(spatial, _to_tuple(scale, len(spatial))))
+    mode = "bilinear" if x.dim() == 4 else "trilinear"
+    y = F.interpolate(x.movedim(-1, 1), size=tuple(int(s) for s in shape), mode=mode, align_corners=False)
     return y.movedim(1, -1)

@@ -75,6 +75,18 @@ def grads(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [p.grad for group in optimizer.param_groups for p in group["params"] if p.grad is not None]
 
 
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A zero gradient for each of the optimizer's parameters that autograd
+    gave none (one that does not reach the loss). torch's optimizers skip
+    such a parameter; optax updates every leaf of the tree, with the zero
+    gradient ``jax.grad`` gives it, so AdamW's decay shrinks it and every
+    parameter's step count stays the same."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def clip_by_global_norm_(optimizer: torch.optim.Optimizer, max_norm: float) -> None:
     """optax.clip_by_global_norm on the optimizer's gradients, in place and
     on the device: g stays g where ‖g‖ < max_norm, else g / ‖g‖ * max_norm."""

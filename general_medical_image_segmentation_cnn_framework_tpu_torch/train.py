@@ -58,7 +58,7 @@ from .losses import bce_with_logits, cross_entropy, dice_loss, focal_loss, one_h
 from .metrics import dice_jaccard
 from .models import build_model, make_forward
 from .ops.fused_bce_dice import fused_bce_dice_metrics
-from .optim import EMA, grads, make_optimizer, optimizer_name
+from .optim import EMA, fill_missing_grads, grads, make_optimizer, optimizer_name
 
 # (key, test that it asks for something the port does not do, ROADMAP item)
 _UNPORTED = (
@@ -177,13 +177,19 @@ def make_train_step(
     taken in order with the parameters fixed: their gradients are summed and
     divided by A before the one optimizer step, BatchNorm's running
     statistics move once per microbatch, in order, and loss and dice are
-    the means over the microbatches, as the JAX ``train_step_accum``."""
+    the means over the microbatches, as the JAX ``train_step_accum``.
+
+    A parameter that does not reach the loss (IS's second and third
+    decoders, DenseVoxelNet's main path) steps with a zero gradient
+    (``optim.fill_missing_grads``), as ``jax.grad`` gives it: AdamW's decay
+    and the moments' decay reach it, as in optax."""
 
     def train_step(x: torch.Tensor, gt: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
         if grad_accum <= 1:
             loss, dice = loss_and_metric(forward(x), gt)
             loss.backward()
+            fill_missing_grads(optimizer)
             optimizer.step()
             return loss.detach(), dice.detach()
         b = x.shape[0]
@@ -193,6 +199,7 @@ def make_train_step(
             loss, dice = loss_and_metric(forward(x_i), g_i)
             loss.backward()
             loss_sum, dice_sum = loss_sum + loss.detach(), dice_sum + dice.detach()
+        fill_missing_grads(optimizer)
         torch._foreach_div_(grads(optimizer), float(grad_accum))
         optimizer.step()
         return loss_sum / grad_accum, dice_sum / grad_accum

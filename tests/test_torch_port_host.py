@@ -75,7 +75,10 @@ def test_znormalization_and_nifti_round_trip_match_jax(tmp_path):
     (tmp_path / "port").mkdir(), (tmp_path / "jax").mkdir()  # gzip stores the file name
     port_io.write_nifti(tmp_path / "port" / "v.nii.gz", port_io.Volume(data, affine))
     jax_io.write_nifti(tmp_path / "jax" / "v.nii.gz", jax_io.Volume(data, affine))
-    assert (tmp_path / "port" / "v.nii.gz").read_bytes() == (tmp_path / "jax" / "v.nii.gz").read_bytes()
+    got, want = (tmp_path / "port" / "v.nii.gz").read_bytes(), (tmp_path / "jax" / "v.nii.gz").read_bytes()
+    # the same file byte for byte but for the gzip header's bytes 4-7, the time of the write
+    assert gzip.decompress(got) == gzip.decompress(want)
+    assert got[:4] + got[8:] == want[:4] + want[8:]
     back = port_io.read_volume(tmp_path / "port" / "v.nii.gz")
     assert back.data.tobytes() == data.tobytes()
     np.testing.assert_array_equal(back.affine, affine)

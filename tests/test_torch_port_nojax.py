@@ -4,8 +4,9 @@ forward and a train step of each on the CPU, the sliding window and the
 whole-volume forward under tta (and the mean-logits blend), train steps with the
 options of ``train.py`` (adamw with a clip, grad_accum, EMA, remat, focal
 and multiclass losses, sgd), a serving ``Predictor``, an export of its
-program and a load of it, the offline filters, and a forward of each of the nine 3-D networks of the
-zoo at a narrow width; no source of the port or ``chip_smoke.py`` imports
+program and a load of it, the offline filters, a forward of each of the nine 3-D networks of the
+zoo's first part at a narrow width, and a forward and a train step of each of the six of its second
+part (densevoxelnet, densenet, fcn3d, highres2dnet, segnet, unetpp) at their fixed widths and test sizes; no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
 card."""
 
@@ -104,6 +105,18 @@ for network, args in zoo.items():
     with torch.inference_mode():
         y = make_forward(ConfigDict(network=network), net)(torch.randn(1, 16, 16, 16, 1))
     assert y.shape == (1, 16, 16, 16, 2) and y.dtype == torch.float32 and torch.isfinite(y).all(), network
+# the six of the zoo's second part at their fixed widths: a forward and a train step each
+for network, patch in (("densevoxelnet", (16, 16, 16)), ("densenet", (16, 16, 16)), ("fcn3d", (24, 24, 24)),
+                       ("highres2dnet", (1, 32, 32)), ("segnet", (1, 32, 32)), ("unetpp", (1, 32, 32))):
+    cfgz = ConfigDict(network=network, out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
+    net = model_class(network)(1, 2).eval()
+    forward = make_forward(cfgz, net)
+    with torch.inference_mode():
+        y = forward(torch.randn(1, *patch, 1))
+    assert y.shape == (1, *patch, 2) and y.dtype == torch.float32 and torch.isfinite(y).all(), network
+    step = make_train_step(forward, make_optimizer(cfgz, net.train().parameters()), make_loss_and_metric(cfgz))
+    loss, dice = step(torch.randn(2, *patch, 1), (torch.rand(2, *patch, 1) > 0.5).float())
+    assert torch.isfinite(loss) and 0 <= float(dice) <= 1, network
 blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded

@@ -170,4 +170,4 @@ def test_registry_builds_unet3d_with_32_features_and_refuses_the_rest():
     assert model.blocks[0].conv.weight.shape == (3, 3, 3, 1, 32)
     assert model.blocks[0].conv.weight.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(ConfigDict(network="densenet", in_classes=1, out_classes=2))
+        build_model(ConfigDict(network="unetr", in_classes=1, out_classes=2))

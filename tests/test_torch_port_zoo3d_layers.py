@@ -5,7 +5,7 @@ gradients, the weights carried by ``convert.py``'s leaf map):
 (train mode, each padding mode), and the general ``TorchConv`` at V-Net's
 (k5 p2; k2 s2), CSR-Net's (k3 s4 p0) and HighResNet's (k3 dilation 2)
 settings (``test_torch_port_zoo3d_blocks.py``: the rest of the blocks); ``Dropout`` by its statistics; the
-registry's refusal of the twelve networks not ported yet.
+registry's refusal of the six networks not ported yet.
 
 The ``cuda``-marked case holds the conv kernels at the ragged stems of
 Double U-Net (Cin 3) and FusionNet (Cin 4) against their plain versions on
@@ -119,8 +119,8 @@ def test_dropout_rate_broadcast_and_scale():
     assert torch.equal(again(x), drop.__class__(0.6, generator=torch.Generator().manual_seed(1)).train()(x))
 
 
-def test_registry_refuses_the_twelve_not_ported_yet():
-    assert len(UNPORTED) == 12
+def test_registry_refuses_the_six_not_ported_yet():
+    assert len(UNPORTED) == 6
     for network in UNPORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_model(ConfigDict(network=network, in_classes=1, out_classes=2))

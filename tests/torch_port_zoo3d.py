@@ -1,17 +1,20 @@
-"""Helpers of the ``test_torch_port_zoo3d_*.py`` files, which hold the
-port's 3-D zoo against the JAX package's in f32 (and f64) on the CPU.
+"""Helpers of the ``test_torch_port_zoo3d_*.py`` and ``test_torch_port_zoo_*.py``
+files, which hold the port's zoo against the JAX package's in f32 (and
+f64) on the CPU.
 
 Blocks (``against_jax``): a block's output, input gradient and parameter
 gradients against the Flax block's, the weights carried by ``convert.py``'s
-map. Networks (``check_*``): nine 3-D networks with the same weights
+map. Networks (``check_*``): fifteen networks with the same weights
 carried across by ``convert.py`` (the network and its widths told from the
 Flax tree). Each JAX tree comes from ``jax.eval_shape`` filled by seeded
 numpy draws (``fill``), and each JAX function runs once under ``jax.jit``
 (never eager ``model.init`` / ``model.apply``). The narrow widths:
 res_unet base_n_filter 4 at 32^3 (its four stride-2 convs leave 2^3),
 CSR-Net and IS init_features 4, Double U-Net 8 (coarse 4), FusionNet 4 and
-4 around the fixed-width V-Net, all at 16^3; V-Net, HighResNet, ER-Net and
-RE-Net have fixed widths.
+4 around the fixed-width V-Net, all at 16^3; V-Net, HighResNet, ER-Net,
+RE-Net, DenseVoxelNet, SkipDenseNet3D (16^3), FCN3D (24^3, the least its
+k7 VALID head and crops allow), HighRes2DNet, SegNet and UNet++ (32^2
+slices; a 2-D net's batch is [n, s, s, 1]) have fixed widths.
 
 The JAX package needs flax, which the card's machine lacks (its only test
 here is the blocks' ``cuda`` case): the network checks' imports are made
@@ -46,8 +49,10 @@ if importlib.util.find_spec("flax") is not None:
     from general_medical_image_segmentation_cnn_framework_tpu.checkpoint import save_checkpoint
     from general_medical_image_segmentation_cnn_framework_tpu.config import ConfigDict
     from general_medical_image_segmentation_cnn_framework_tpu.models.three_d import (
-        csrnet, double_unet, er_net, fusionnet, highresnet, is_net, re_net, residual_unet3d, vnet3d,
+        csrnet, densenet3d, densevoxelnet3d, double_unet, er_net, fcn3d, fusionnet, highresnet, is_net, re_net,
+        residual_unet3d, vnet3d,
     )
+    from general_medical_image_segmentation_cnn_framework_tpu.models.two_d import highresnet2d, segnet, unetpp
     from general_medical_image_segmentation_cnn_framework_tpu.nn import norm as jax_norm
     from general_medical_image_segmentation_cnn_framework_tpu.ops.fft import band_split
 
@@ -75,7 +80,7 @@ def fill(tree, seed):
         "kernel": lambda s: rng.normal(0.0, np.prod(s[:-1]) ** -0.5, s),
         "bias": lambda s: rng.normal(0.0, 0.1, s), "scale": lambda s: rng.uniform(0.5, 1.5, s),
         "mean": lambda s: rng.normal(0.0, 0.2, s), "var": lambda s: rng.uniform(0.5, 2.0, s),
-        "alpha": lambda s: rng.uniform(0.1, 0.4, s),
+        "alpha": lambda s: rng.uniform(0.1, 0.4, s), "mix": lambda s: rng.uniform(0.5, 1.5, s),
     }
 
     def walk(t):
@@ -130,7 +135,19 @@ NETS = {
     "IS": ("IS", lambda: is_net.ISNet(1, 2, 4), 16),
     "dunet": ("dunet", lambda: double_unet.DoubleUNet(1, 2, 8), 16),
     "fusionnet": ("fusionnet", lambda: fusionnet.FusionNet(1, 2, 4, 4), 16),
+    "densevoxelnet": ("densevoxelnet", lambda: densevoxelnet3d.DenseVoxelNet(1, 2), 16),
+    "densenet": ("densenet", lambda: densenet3d.SkipDenseNet3D(1, 2), 16),
+    "fcn3d": ("fcn3d", lambda: fcn3d.FCN3D(1, 2), 24),
+    "highres2dnet": ("highres2dnet", lambda: highresnet2d.HighRes2DNet(1, 2), 32),
+    "segnet": ("segnet", lambda: segnet.SegNet(1, 2), 32),
+    "unetpp": ("unetpp", lambda: unetpp.UNetPlusPlus(1, 2), 32),
 }
+TWO_D = ("highres2dnet", "segnet", "unetpp")
+
+
+def spatial(case):
+    """The spatial shape of the case's model input: s^3, or s^2 for a 2-D net."""
+    return (NETS[case][2],) * (2 if case in TWO_D else 3)
 
 
 def config_of(case):
@@ -176,8 +193,7 @@ def jax_model(case, native=False, seed=1):
     numpy seed: fan-in scaled kernels, and non-trivial BatchNorm statistics
     and affine parameters, conv biases and PReLU slopes."""
     module = NETS[case][1]()
-    s = NETS[case][2]
-    x = jnp.zeros((1, s, s, s, 1))
+    x = jnp.zeros((1, *spatial(case), 1))
     with conv_route(native):
         shapes = jax.eval_shape(lambda: module.init(
             {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, *jax_args(case, x), train=False))
@@ -187,8 +203,8 @@ def jax_model(case, native=False, seed=1):
 
 
 def batch(case, n=2, seed=5):
-    s = NETS[case][2]
-    return np.random.default_rng(seed).normal(size=(n, s, s, s, 1)).astype(np.float32)
+    """A seeded batch of the model's input: [n, s, s, s, 1], or [n, s, s, 1] for a 2-D net."""
+    return np.random.default_rng(seed).normal(size=(n, *spatial(case), 1)).astype(np.float32)
 
 
 def port_model(case, variables):
@@ -218,7 +234,10 @@ def check_eval_logits(case, native=False):
     want = jax_logits(case, variables, x, native)
     model = port_model(case, variables).eval()
     with torch.inference_mode():
-        got = make_forward(config_of(case), model)(torch.from_numpy(x)).numpy()
+        if case in TWO_D:  # train and predict give [B, 1, H, W, C] patches; the adapter drops and restores the depth
+            got = make_forward(config_of(case), model)(torch.from_numpy(x[:, None])).numpy()[:, 0]
+        else:
+            got = make_forward(config_of(case), model)(torch.from_numpy(x)).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape == x.shape[:-1] + (2,)
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
 
@@ -241,9 +260,13 @@ def check_checkpoint_converts(case, tmp_path, with_adam=True, native=False):
         adam, *rest = opt_state.inner_state
         opt_state = opt_state._replace(inner_state=(adam._replace(mu=mu, nu=nu), *rest))
     src, dst = tmp_path / "latest_checkpoint.ckpt", tmp_path / "port.pt"
-    save_checkpoint(src, variables["params"], variables["batch_stats"], opt_state, epoch=3)
-    convert_checkpoint(src, dst)
-    state = load_checkpoint(dst)
+    try:  # both files go before the test returns: the largest are hundreds of MB
+        save_checkpoint(src, variables["params"], variables["batch_stats"], opt_state, epoch=3)
+        convert_checkpoint(src, dst)
+        state = load_checkpoint(dst)
+    finally:
+        src.unlink(missing_ok=True)
+        dst.unlink(missing_ok=True)
     model = port_model(case, variables)
     assert state["epoch"] == 3 and state["optimizer"] == ("adam" if with_adam else None)
     assert state["params"].keys() == model.state_dict().keys()
@@ -271,7 +294,7 @@ def check_registry(network):
     model = build_model(PortConfig(**config))
     assert model.dtype == torch.bfloat16 and all(p.dtype == torch.float32 for p in model.parameters())
     flax_model = jax_build_model(ConfigDict(**config))
-    x = jnp.zeros((1, 32, 32, 32, 1))
+    x = jnp.zeros((1, 32, 32, 1) if network in TWO_D else (1, 32, 32, 32, 1))
     args = (x, x, x) if network == "IS" else (x,)
     shapes = jax.eval_shape(lambda: flax_model.init(
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, *args, train=False))
@@ -354,15 +377,15 @@ def gradient_distances(model, jax_grads):
 class _NormsInF64:
     """``jax.numpy`` as the JAX package's ``nn/norm.py`` sees it in the f64
     step: its ``float32`` is float64, so that the norms' statistics, which
-    it computes in f32 whatever the input, follow the model's f64."""
-
-    float32 = jnp.float64
+    it computes in f32 whatever the input, follow the model's f64. Looked
+    up when used, not when the class is made: this module is imported where
+    flax, and so ``jnp`` here, is missing (the card's machine)."""
 
     def __getattr__(self, name):
-        return getattr(jnp, name)
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
 
 
-def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e-6):
+def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e-6, f32_tol=1e-2):
     """One train step of the port against the JAX package's (binary BCE;
     IS with the same FFT bands on both sides, JAX's ``band_split``: the
     port's is held to it in ``test_torch_port_zoo3d_layers.py``), dropout
@@ -373,7 +396,7 @@ def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e
     The port's f32 step: its loss within 1e-5 of JAX's, the BatchNorm
     running statistics the forward leaves within ``stats_tol`` (rtol,
     atol), and the gradient of every parameter together within 1e-2 in
-    relative L2 norm. The port's f64 step (the model built with an f64
+    relative L2 norm (``f32_tol``). The port's f64 step (the model built with an f64
     compute dtype): every parameter's gradient on its own within
     ``grad_tol`` of JAX's (``gradient_distances``).
 
@@ -407,7 +430,7 @@ def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e
     diff = sum(float(((named[k].grad if named[k].grad is not None else 0.0) - w).square().sum())
                for k, w in want.items())
     norm = sum(float(w.square().sum()) for w in want.values())
-    assert (diff / norm) ** 0.5 <= 1e-2, (diff / norm) ** 0.5
+    assert (diff / norm) ** 0.5 <= f32_tol, (diff / norm) ** 0.5
     want_state = module_state_dict_from_flax(model, variables["params"], updates.get("batch_stats", {}))
     for k, v in model.state_dict().items():
         if "running_" in k:
@@ -420,3 +443,58 @@ def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e
     worst = max(distance, key=distance.get)
     assert distance[worst] <= grad_tol, (worst, distance[worst])
     return distance
+
+
+# -- AdamW on the parameters that do not reach the loss
+
+LR, WD = 1e-3, 0.01
+# the port's names of the parameters whose gradient is 0
+UNUSED = {"IS": ("decoders.1.", "decoders.2.", "head2."),
+          "densevoxelnet": ("block2.", "up_conv.", "up_bn.", "up1.", "up2.")}
+
+
+def check_adamw_unused(case, monkeypatch):
+    """One AdamW step (wd 0.01) of ``case`` in both packages, dropout off:
+    the parameters without a gradient decayed as JAX decays them (test
+    files ``test_torch_port_adamw_unused_*.py``, whose docstring says why)."""
+    import flax.linen
+
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import train as port_train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict as PortConfig
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import Dropout
+
+    monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    module, variables = jax_model(case, True)
+    x = batch(case, n=2, seed=12)
+    gt = (np.random.default_rng(13).uniform(size=x.shape) > 0.5).astype(np.float32)
+    cfg = config_of(case)
+    cfg.optimizer, cfg.weight_decay, cfg.init_lr = "adamw", WD, LR
+    tx = jax_train.make_optimizer(cfg)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    step = jax_train.make_train_step(cfg, module, tx)
+    with conv_route(native=True):  # the tree's route: XLA's own conv, traced at the first call
+        out = step(params, jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]), tx.init(params),
+                   jnp.asarray(x), jnp.asarray(gt), jax.random.PRNGKey(0))
+    want = module_state_dict_from_flax(port_model(case, variables), jax.tree_util.tree_map(np.asarray, out[0]))
+
+    model = port_model(case, variables).train()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    pcfg = PortConfig(network=case, out_classes=2, loss="bce", optimizer="adamw", weight_decay=WD, init_lr=LR)
+    optimizer = port_train.make_optimizer(pcfg, model.parameters())
+    port_train.make_train_step(make_forward(pcfg, model), optimizer, port_train.make_loss_and_metric(pcfg))(
+        torch.from_numpy(x), torch.from_numpy(gt))
+
+    unused = 0
+    for name, p in model.named_parameters():
+        if name.startswith(UNUSED[case]):
+            unused += 1
+            decayed = before[name] * (1 - LR * WD) if p.dim() > 1 else before[name]
+            torch.testing.assert_close(want[name], decayed, rtol=1e-6, atol=0, msg=name)
+            torch.testing.assert_close(p.detach(), want[name], rtol=1e-6, atol=0, msg=name)
+        else:
+            torch.testing.assert_close(p.detach(), want[name], rtol=0, atol=2 * LR, msg=name)
+    assert unused > 10
+    assert all(float(optimizer.state[p]["step"]) == 1.0 for p in model.parameters())
