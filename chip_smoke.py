@@ -182,9 +182,9 @@ each of which stops the run with a non-zero exit when it fails:
    one) on 32^3 in f32, card against CPU, logits within 1e-3 of their
    scale. ER-Net (bare TorchConvs) exported by the whole volume at
    128x128x64, loaded, the Predictor's mask with 14 eval conv launches.
-16. The 2-D zoo at full width: highres2dnet, segnet and unetpp at the
-   unet2d defaults (patch 1,128,128, batch 16, bf16, Adam, device data) on
-   [10]'s volumes: ``train.main`` for 2 steps with exactly the
+16. The 2-D zoo at full width: highres2dnet, segnet, unetpp, fcn2d,
+   deeplab, pspnet and miniseg at the unet2d defaults (patch 1,128,128,
+   batch 16, bf16, Adam, device data) on [10]'s volumes: ``train.main`` for 2 steps with exactly the
    ``conv2d_bn_relu`` / ``conv2d_input_grad`` / ``conv2d_wgrad`` launches of
    the network's k3 s1 p1 convs (``ZOO2D``) and no 3-D conv; a warm step
    by CUDA events and the peak memory; ``predict.main`` on one volume of
@@ -265,8 +265,10 @@ ZOO_NARROW = {
     "re_net": (1,), "IS": (1, 2, 8), "dunet": (1, 2, 16), "fusionnet": (1, 2, 8, 8), "densevoxelnet": (1, 2),
     "densenet": (1, 2), "fcn3d": (1, 2),
 }
-# [16]: the 2-D zoo's k3 s1 p1 conv launches (conv2d_*), as ZOO's; all three at their fixed widths
-ZOO2D = {"highres2dnet": (7, 6, 7, 7), "segnet": (26, 25, 26, 26), "unetpp": (59, 59, 59, 59)}
+# [16]: the 2-D zoo's k3 s1 p1 conv launches (conv2d_*), as ZOO's; all at their fixed widths. fcn2d's first
+# conv (p100) and the strided, dilated, grouped and depthwise convs of the others take cuDNN
+ZOO2D = {"highres2dnet": (7, 6, 7, 7), "segnet": (26, 25, 26, 26), "unetpp": (59, 59, 59, 59),
+         "fcn2d": (12, 12, 12, 12), "deeplab": (30, 30, 30, 30), "pspnet": (20, 20, 20, 20), "miniseg": (2, 2, 2, 2)}
 ZOO2D_VOLUME = (64, SLICE, SLICE)  # [16]'s predict volume: 64 slices of 1 x 128 x 128, 4 batches of 16
 
 

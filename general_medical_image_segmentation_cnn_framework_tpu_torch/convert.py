@@ -67,7 +67,9 @@ def _leaf_from_flax(module: torch.nn.Module, params: Mapping, stats: Optional[Ma
     BatchNorm's ``scale``/``bias`` and ``mean``/``var`` statistics, an
     affine InstanceNorm's ``scale``/``bias``, PReLU's ``alpha``, Dense's
     ``kernel``/``bias``; the parameters a module names in ``flax_params``
-    (UNet++'s ``mix``) under their own names; nothing else."""
+    (UNet++'s ``mix``, FCN32s's ``upscore_kernel``) under their own names;
+    nothing else. A grouped conv's kernel [k.., Cin / g, Cout] is read as
+    any other."""
     from .nn.blocks import Dense, PReLU, TorchConv, TorchConvTranspose
     from .nn.norm import BatchNorm, InstanceNorm
 
@@ -125,7 +127,8 @@ _SIGNATURES = (
     ("highresnet", "DilationBlock_0"), ("vnet", "_NConvs_0"), ("res_unet", "_NormLReluConv_0"),
     ("er_net", "SFDecoder_0"), ("re_net", "ResEncoder_0"), ("densenet", "_GroupedConvTranspose_0"),
     ("densevoxelnet", "_DenseLayer_0"), ("fcn3d", "_BilinearDeconv_0"), ("unetpp", "_BasicBlock_0"),
-    ("segnet", "ConvBlock_24"),
+    ("segnet", "ConvBlock_24"), ("fcn2d", "upscore_kernel"), ("deeplab", "ResNetBackbone_0"),
+    ("pspnet", "_ResNet34Dilated_0"), ("miniseg", "_DilatedParallelConvBlockD2_0"),
 )
 
 

@@ -1,9 +1,9 @@
 """``config.network`` -> model. Ported so far: ``unet`` (UNet3D), ``unet2d``
 (UNet2D), twelve of the 3-D zoo (``res_unet``, ``vnet``, ``highresnet``,
 ``csrnet``, ``er_net``, ``re_net``, ``IS``, ``dunet``, ``fusionnet``,
-``densevoxelnet``, ``densenet``, ``fcn3d``) and three 2-D nets
-(``highres2dnet``, ``segnet``, ``unetpp``), each at its JAX
-``from_config`` width."""
+``densevoxelnet``, ``densenet``, ``fcn3d``) and seven 2-D nets
+(``highres2dnet``, ``segnet``, ``unetpp``, ``fcn2d``, ``deeplab``,
+``pspnet``, ``miniseg``), each at its JAX ``from_config`` width."""
 
 from __future__ import annotations
 
@@ -39,9 +39,13 @@ _MODELS = {
     "highres2dnet": ("two_d.highresnet2d", "HighRes2DNet"),
     "segnet": ("two_d.segnet", "SegNet"),
     "unetpp": ("two_d.unetpp", "UNetPlusPlus"),
+    "fcn2d": ("two_d.fcn2d", "FCN32s"),
+    "deeplab": ("two_d.deeplab", "DeepLabV3"),
+    "pspnet": ("two_d.pspnet", "PSPNet"),
+    "miniseg": ("two_d.miniseg", "MiniSeg"),
 }
 # the JAX package's networks still to be ported (ROADMAP queue 1 item 11)
-UNPORTED = ("fcn2d", "deeplab", "pspnet", "miniseg", "unetr", "vtnet")
+UNPORTED = ("unetr", "vtnet")
 
 
 def is_2d(network: str) -> bool:

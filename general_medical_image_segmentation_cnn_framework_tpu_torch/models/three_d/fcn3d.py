@@ -32,18 +32,19 @@ STAGE_ENDS = (1, 3, 6, 9, 12)
 
 
 def bilinear_kernel(shape) -> torch.Tensor:
-    """The JAX package's ``bilinear_kernel_init``: a [k, k, k, Cin, Cout]
-    kernel with the separable bilinear upsampling filter on each matching
-    (c, c) channel pair, zero elsewhere."""
+    """The JAX package's ``bilinear_kernel_init`` (and FCN32s's
+    ``_bilinear_kernel_init_2d``): a [k, k, k, Cin, Cout] (or [k, k, Cin,
+    Cout]) kernel with the separable bilinear upsampling filter on each
+    matching (c, c) channel pair, zero elsewhere."""
     k, cin, cout = shape[0], shape[-2], shape[-1]
     factor = (k + 1) // 2
     center = factor - 1 if k % 2 == 1 else factor - 0.5
-    og = np.ogrid[:k, :k, :k]
-    filt = ((1 - abs(og[0] - center) / factor) * (1 - abs(og[1] - center) / factor)
-            * (1 - abs(og[2] - center) / factor))
+    filt = 1.0
+    for og in np.ogrid[(slice(k),) * (len(shape) - 2)]:
+        filt = filt * (1 - abs(og - center) / factor)
     w = np.zeros(shape, dtype=np.float32)
     for c in range(min(cin, cout)):
-        w[:, :, :, c, c] = filt
+        w[..., c, c] = filt
     return torch.from_numpy(w)
 
 

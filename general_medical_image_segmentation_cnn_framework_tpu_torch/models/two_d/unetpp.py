@@ -28,21 +28,22 @@ DECODER = (((0, 1), 128, 64), ((1, 1), 192, 64), ((0, 2), 192, 64), ((2, 1), 384
            ((0, 3), 320, 128), ((3, 1), 768, 256), ((2, 2), 512, 256), ((1, 3), 512, 256), ((0, 4), 576, 256))
 
 
-def _conv(cin, cout, dtype, init_type, gen, k=3, stride=1, p=1):
+def _conv(cin, cout, dtype, init_type, gen, k=3, stride=1, p=1, d=1):
     return TorchConv(cin, cout, dtype, init_type, gen, ndim=2, kernel_size=k, stride=stride, padding=p,
-                     use_bias=False)
+                     dilation=d, use_bias=False)
 
 
 class _BasicBlock(nn.Module):
     """ResNet's basic block: conv -> BatchNorm -> ReLU -> conv -> BatchNorm,
-    plus x or its 1x1 projection (conv -> BatchNorm), then ReLU."""
+    plus x or its 1x1 projection (conv -> BatchNorm), then ReLU. Both k3
+    convs are padded by their ``dilation`` (PSPNet's dilated stages)."""
 
-    def __init__(self, inplanes, planes, stride, downsample, dtype, init_type, gen):
+    def __init__(self, inplanes, planes, stride, downsample, dtype, init_type, gen, dilation=1):
         super().__init__()
         names = ScopeNames()
-        self.conv1 = names(_conv(inplanes, planes, dtype, init_type, gen, stride=stride))
+        self.conv1 = names(_conv(inplanes, planes, dtype, init_type, gen, stride=stride, p=dilation, d=dilation))
         self.bn1 = names(BatchNorm(planes))
-        self.conv2 = names(_conv(planes, planes, dtype, init_type, gen))
+        self.conv2 = names(_conv(planes, planes, dtype, init_type, gen, p=dilation, d=dilation))
         self.bn2 = names(BatchNorm(planes))
         self.down = self.down_bn = None
         if downsample:

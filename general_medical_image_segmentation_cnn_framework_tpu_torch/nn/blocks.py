@@ -102,31 +102,42 @@ class TorchConv(nn.Module):
     ``torch.export``); on the CPU their plain versions. A pointwise conv
     (k1 s1 p0) is one matmul over the channels. Every other conv, which the
     JAX package runs through XLA's convolution and no Pallas kernel, is
-    ``F.conv3d`` / ``F.conv2d``."""
+    ``F.conv3d`` / ``F.conv2d``.
+
+    With ``groups`` g (Flax's ``feature_group_count``), ``weight`` is
+    [k.., Cin / g, Cout] and input channels i * Cin/g ... feed output
+    channels i * Cout/g ...: always ``F.conv3d`` / ``F.conv2d`` with
+    ``groups``, a grouped 1x1 or k3 conv included (MiniSeg's grouped and
+    depthwise convs; XLA's conv in the JAX package)."""
 
     def __init__(
         self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
         init_type: str = "none", generator: Optional[torch.Generator] = None,
         ndim: int = 3, kernel_size: IntOrTuple = 3, stride: IntOrTuple = 1,
         padding: Optional[IntOrTuple] = None, dilation: IntOrTuple = 1, use_bias: bool = True,
+        groups: int = 1,
     ):
         super().__init__()
         if ndim not in (2, 3):
             raise ValueError(f"TorchConv: ndim must be 2 or 3, got {ndim}")
-        self.dtype, self.ndim = dtype, ndim
+        if cin % groups or cout % groups:
+            raise ValueError(f"TorchConv: groups={groups} must divide Cin={cin} and Cout={cout}")
+        self.dtype, self.ndim, self.groups = dtype, ndim, groups
         self.kernel_size = _to_tuple(kernel_size, ndim)
         self.stride = _to_tuple(stride, ndim)
         self.padding = tuple(k // 2 for k in self.kernel_size) if padding is None else _to_tuple(padding, ndim)
         self.dilation = _to_tuple(dilation, ndim)
         gen = _generator(generator)
-        self.weight = nn.Parameter(kernel_initializer(init_type)(self.kernel_size + (cin, cout), gen))
+        self.weight = nn.Parameter(kernel_initializer(init_type)(self.kernel_size + (cin // groups, cout), gen))
         if use_bias:
             self.bias = nn.Parameter(bias_initializer(init_type)((cout,), gen))
         else:
             self.register_parameter("bias", None)
         one = (1,) * ndim
-        self.hand_kernel = (self.kernel_size, self.stride, self.padding, self.dilation) == ((3,) * ndim, one, one, one)
-        self.pointwise = (self.kernel_size, self.stride, self.padding) == (one, one, (0,) * ndim)
+        dense = groups == 1
+        self.hand_kernel = dense and (self.kernel_size, self.stride, self.padding, self.dilation) == (
+            (3,) * ndim, one, one, one)
+        self.pointwise = dense and (self.kernel_size, self.stride, self.padding) == (one, one, (0,) * ndim)
 
     def _bias(self, device: torch.device) -> torch.Tensor:
         return self.bias if self.bias is not None else torch.zeros(self.weight.shape[-1], device=device)
@@ -147,7 +158,7 @@ class TorchConv(nn.Module):
         nd = self.ndim
         w = self.weight.permute(nd + 1, nd, *range(nd)).to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
-        y = conv(x.movedim(-1, 1), w, b, self.stride, self.padding, self.dilation)
+        y = conv(x.movedim(-1, 1), w, b, self.stride, self.padding, self.dilation, self.groups)
         return y.movedim(1, -1)
 
 
@@ -393,20 +404,36 @@ def max_pool(x: torch.Tensor, window: IntOrTuple = 2, stride: Optional[IntOrTupl
              padding: IntOrTuple = 0) -> torch.Tensor:
     """torch ``MaxPool3d`` / ``MaxPool2d`` on NDHWC / NHWC (by x's rank):
     floor output size, padding with -inf; ``stride`` defaults to the
-    window. A window equal to its stride with no padding is a reshape and
-    a max."""
-    n, *spatial, c = x.shape
-    nd = len(spatial)
+    window. The JAX package's ``max_pool`` is XLA's window max, whose
+    gradient goes wholly to the first maximum of a window in scan order;
+    torch's max pool gives it to the same one (an ``amax`` over the windows
+    would split a tie, which bf16 activations often hold)."""
+    nd = x.dim() - 2
     w = _to_tuple(window, nd)
     s = w if stride is None else _to_tuple(stride, nd)
-    p = _to_tuple(padding, nd)
-    if w != s or any(p):
-        pool = F.max_pool3d if nd == 3 else F.max_pool2d
-        return pool(x.movedim(-1, 1), w, s, p).movedim(1, -1)
-    out = [size // k for size, k in zip(spatial, w)]
-    x = x[(slice(None), *(slice(0, o * k) for o, k in zip(out, w)))]
-    split = [v for o, k in zip(out, w) for v in (o, k)]
-    return x.reshape(n, *split, c).amax(dim=tuple(range(2, 2 * nd + 1, 2)))
+    pool = F.max_pool3d if nd == 3 else F.max_pool2d
+    return pool(x.movedim(-1, 1), w, s, _to_tuple(padding, nd)).movedim(1, -1)
+
+
+def avg_pool(x: torch.Tensor, window: IntOrTuple = 2, stride: Optional[IntOrTuple] = None,
+             padding: IntOrTuple = 0) -> torch.Tensor:
+    """torch ``AvgPool3d`` / ``AvgPool2d`` on NDHWC / NHWC (by x's rank),
+    floor output size, ``stride`` defaulting to the window: the JAX
+    package's ``avg_pool`` (``flax.linen.avg_pool``). Both count a padded
+    cell as a 0 in the window, so every window divides by its full size."""
+    nd = x.dim() - 2
+    w = _to_tuple(window, nd)
+    s = w if stride is None else _to_tuple(stride, nd)
+    pool = F.avg_pool3d if nd == 3 else F.avg_pool2d
+    return pool(x.movedim(-1, 1), w, s, _to_tuple(padding, nd), count_include_pad=True).movedim(1, -1)
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, size: int) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d(size)`` on NHWC x: output cell i of an axis
+    of length L averages cells floor(i L / size) to ceil((i + 1) L / size)
+    (the segments overlap where size does not divide L, and where size > L),
+    PSPNet's ``adaptive_avg_pool2d`` in the JAX package."""
+    return F.adaptive_avg_pool2d(x.movedim(-1, 1), size).movedim(1, -1)
 
 
 def max_pool_ceil(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ options of ``train.py`` (adamw with a clip, grad_accum, EMA, remat, focal
 and multiclass losses, sgd), a serving ``Predictor``, an export of its
 program and a load of it, the offline filters, a forward of each of the nine 3-D networks of the
 zoo's first part at a narrow width, and a forward and a train step of each of the six of its second
-part (densevoxelnet, densenet, fcn3d, highres2dnet, segnet, unetpp) at their fixed widths and test sizes; no source of the port or ``chip_smoke.py`` imports
+part (densevoxelnet, densenet, fcn3d, highres2dnet, segnet, unetpp) at their fixed widths and test sizes,
+the four of its third part (fcn2d, deeplab, pspnet, miniseg) built at their JAX widths and a forward and a
+train step of MiniSeg; no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
 card."""
 
@@ -117,6 +119,19 @@ for network, patch in (("densevoxelnet", (16, 16, 16)), ("densenet", (16, 16, 16
     step = make_train_step(forward, make_optimizer(cfgz, net.train().parameters()), make_loss_and_metric(cfgz))
     loss, dice = step(torch.randn(2, *patch, 1), (torch.rand(2, *patch, 1) > 0.5).float())
     assert torch.isfinite(loss) and 0 <= float(dice) <= 1, network
+# the four of the 2-D zoo's third part built at their JAX widths, and a forward and a train step of MiniSeg
+for network, count in (("fcn2d", 134283970), ("deeplab", 58158402), ("pspnet", 27494341), ("miniseg", 99146)):
+    cfgz = ConfigDict(network=network, in_classes=1, out_classes=2, precision="float32", loss="bce", optimizer="adam",
+                      init_lr=1e-3)
+    net = build_model(cfgz)
+    assert sum(p.numel() for p in net.parameters()) == count, network
+forward = make_forward(cfgz, net.eval())
+with torch.inference_mode():
+    y = forward(torch.randn(1, 1, 32, 32, 1))
+assert y.shape == (1, 1, 32, 32, 2) and y.dtype == torch.float32 and torch.isfinite(y).all()
+step = make_train_step(forward, make_optimizer(cfgz, net.train().parameters()), make_loss_and_metric(cfgz))
+loss, dice = step(torch.randn(2, 1, 32, 32, 1), (torch.rand(2, 1, 32, 32, 1) > 0.5).float())
+assert torch.isfinite(loss) and 0 <= float(dice) <= 1
 blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded

@@ -172,7 +172,7 @@ def test_registry_builds_unet2d_from_its_config():
     assert model.blocks[10].conv.weight.shape == (3, 3, 1024, 256)
     assert model.head.weight.shape == (1, 1, 64, 2) and model.head.weight.dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(ConfigDict(network="fcn2d", in_classes=1, out_classes=2))
+        build_model(ConfigDict(network="vtnet", in_classes=1, out_classes=2))
 
 
 @pytest.mark.parametrize("init_type", ["normal", "kaiming"])
