@@ -157,8 +157,8 @@ each of which stops the run with a non-zero exit when it fails:
    operator against the direct call (eager predict's), alternated: host
    microseconds per call, and UNet2D's sliding window on the card.
 15. The 3-D zoo at full width: res_unet, vnet, highresnet, csrnet, er_net,
-   re_net, IS, dunet, fusionnet, densevoxelnet, densenet and fcn3d, each
-   at its JAX ``from_config`` width,
+   re_net, IS, dunet, fusionnet, densevoxelnet, densenet, fcn3d and the
+   transformers unetr and vtnet, each at its JAX ``from_config`` width,
    bf16, Adam, device data on [10]'s two 256x256x128 volumes (those of
    [3]). ``train.main`` for 2 steps of 16 x 64^3: finite losses, and per
    step exactly the ``conv3d_bn_relu`` / ``conv3d_input_grad`` /
@@ -172,7 +172,12 @@ each of which stops the run with a non-zero exit when it fails:
    that runs the bands' decoders too, which out1 does not read; densevoxelnet's
    eval forward runs its first dense block alone, 12 of its 24 convs); fcn3d's
    whole-volume forward over one 256x256x128 volume (its p60 stem makes
-   374x374x246 x 8 maps): its time, peak memory and 11 launches. Each k3 s1 p1 conv shape the twelve bring at 16 x 64^3 and
+   374x374x246 x 8 maps): its time, peak memory and 11 launches; VT-UNet's
+   whole-volume forward over the same volume (time, peak memory, the
+   mask's shape; no conv launch). For unetr and vtnet one warm train step
+   at their config's own 128^3 patch, at the largest batch of 16, 8, 4, 2,
+   1 that fits on the card: the batch, the ms and the peak GiB. Each k3 s1
+   p1 conv shape the fourteen bring at 16 x 64^3 and
    its pooled sizes that UNet3D's 18 ([2], [6]) lack, the ragged stems
    (Cin 3 and 4), densevoxelnet's Cout-12 dense layers and fcn3d's 8->8 at
    182^3 among them, in bf16 against the plain versions with
@@ -180,8 +185,11 @@ each of which stops the run with a non-zero exit when it fails:
    stem, whose input is data) and weight gradient, with the kernel, plain,
    cuDNN and bound times. Each network at a narrow width (or its fixed
    one) on 32^3 in f32, card against CPU, logits within 1e-3 of their
-   scale. ER-Net (bare TorchConvs) exported by the whole volume at
-   128x128x64, loaded, the Predictor's mask with 14 eval conv launches.
+   scale (UNETR at embed 32, 4 heads; VT-UNet at embed 12, window 4). ER-Net
+   (bare TorchConvs) exported by the whole volume at 128x128x64, loaded, the
+   Predictor's mask with 14 eval conv launches; VT-UNet's crop program
+   (its roll, window partition and shift masks) exported at 128x128x64,
+   loaded, the Predictor's mask.
 16. The 2-D zoo at full width: highres2dnet, segnet, unetpp, fcn2d,
    deeplab, pspnet and miniseg at the unet2d defaults (patch 1,128,128,
    batch 16, bf16, Adam, device data) on [10]'s volumes: ``train.main`` for 2 steps with exactly the
@@ -257,13 +265,16 @@ ZOO = {
     "res_unet": (19, 18, 19, 19), "vnet": (0, 0, 0, 0), "highresnet": (7, 6, 7, 7), "csrnet": (18, 17, 18, 18),
     "er_net": (14, 13, 14, 14), "re_net": (14, 13, 14, 14), "IS": (54, 17, 18, 18), "dunet": (28, 27, 28, 28),
     "fusionnet": (20, 19, 20, 20), "densevoxelnet": (24, 12, 12, 12), "densenet": (19, 18, 19, 19),
-    "fcn3d": (11, 11, 11, 11),
+    "fcn3d": (11, 11, 11, 11), "unetr": (17, 16, 17, 17), "vtnet": (0, 0, 0, 0),
 }
+TRANSFORMERS = ("unetr", "vtnet")  # [15]: a warm step at their config's 128^3 patch, the largest batch that fits
+CONFIG_BATCHES = (16, 8, 4, 2, 1)
 # [15]'s f32 card-vs-CPU models: the class's arguments at a narrow width (the fixed-width nets at theirs)
 ZOO_NARROW = {
     "res_unet": (1, 2, 8), "vnet": (True, 1, 2), "highresnet": (1, 2), "csrnet": (1, 2, 8), "er_net": (2, 1),
     "re_net": (1,), "IS": (1, 2, 8), "dunet": (1, 2, 16), "fusionnet": (1, 2, 8, 8), "densevoxelnet": (1, 2),
     "densenet": (1, 2), "fcn3d": (1, 2),
+    "unetr": ((32, 32, 32), 1, 2, 32, 16, 4), "vtnet": (2, 1, 12, 4),  # the JAX tests' narrow sizes (test_zoo.py)
 }
 # [16]: the 2-D zoo's k3 s1 p1 conv launches (conv2d_*), as ZOO's; all at their fixed widths. fcn2d's first
 # conv (p100) and the strided, dilated, grouped and depthwise convs of the others take cuDNN
@@ -1021,6 +1032,55 @@ def zoo_state_dict(torch, model, seed):
     return sd
 
 
+def config_patch_step(torch, dev, card, network, train):
+    """[15]: one warm train step of ``network`` at its shipped config
+    (``config=<network>``: 128^3 patches, bf16, Adam) on random device
+    batches, at the largest batch of ``CONFIG_BATCHES`` whose step fits on
+    the card (a batch that runs out of memory is freed and the next tried):
+    the batch, the mean of two warm steps by CUDA events and the peak
+    memory."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.models import make_forward
+
+    cfg = compose([f"config={network}", "config.precision=bfloat16", "config.optimizer=adam"], job_name="train",
+                  make_run_dir=False)
+    patch = tuple(int(s) for s in cfg.patch_size)
+    model = train.build_model(cfg).to(dev).train()
+    step = train.make_train_step(make_forward(cfg, model), train.make_optimizer(cfg, model.parameters()),
+                                 train.make_loss_and_metric(cfg))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    refused = []
+    for batch in CONFIG_BATCHES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            xb = torch.randn(batch, *patch, 1, device=dev, generator=gen)
+            yb = (torch.rand(batch, *patch, 1, device=dev, generator=gen) > 0.7).float()
+            loss, _ = step(xb, yb)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                loss, _ = step(xb, yb)
+            end.record()
+            end.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            refused.append(batch)
+            xb = yb = None
+            for p in model.parameters():
+                p.grad = None
+            continue
+        check(math.isfinite(loss.item()), f"[15] {network} at {patch}: loss {loss.item()}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[15] {card}: {network} at its config's patch {'x'.join(map(str, patch))} (bf16, Adam): batch "
+              f"{batch} (out of memory at {refused or 'none larger'}), warm step {start.elapsed_time(end) / 2:.3f} "
+              f"ms, peak memory {peak:.3f} GiB, loss {loss.item():.5f}", flush=True)
+        break
+    else:
+        check(False, f"[15] {network} at {patch}: no batch of {CONFIG_BATCHES} fits")
+    del model, step, xb, yb
+    torch.cuda.empty_cache()
+
+
 def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
     """Phase [15]: the 3-D zoo at full width (see the module docstring).
     Returns the largest bf16 error of each conv kernel at the zoo's new
@@ -1135,7 +1195,7 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
                 sw.sliding_window_predict(forward, vol, (PATCH,) * 3, OVERLAP, BATCH)
                 torch.cuda.synchronize()
             card_s = time.perf_counter() - t0
-            if network == "fcn3d":  # the whole volume: its p60 stem pads 256x256x128 to 374x374x246 x 8 channels
+            if network in ("fcn3d", "vtnet"):  # the whole volume (fcn3d's p60 stem makes 374x374x246 x 8 maps)
                 big = sw.prepare_volume(transforms.ZNormalization().normalize_array(
                     io.read_volume(data / "source" / "vol-00.nii.gz").data), dev, torch.bfloat16)
                 runs = []
@@ -1150,11 +1210,11 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
                     runs.append(time.perf_counter() - t0)
                     got = read_counters()
                     check(got["conv3d_bn_relu"] == evals and tuple(wmask.shape) == VOLUME,
-                          f"[15] fcn3d whole volume: launches {got}, mask {tuple(wmask.shape)}")
+                          f"[15] {network} whole volume: launches {got}, mask {tuple(wmask.shape)}")
                 whole_peak = torch.cuda.max_memory_allocated() / 2**30
-                print(f"[15] {card}: fcn3d's whole-volume forward over {'x'.join(map(str, VOLUME))} (bf16, batch 1): "
-                      f"{runs[0]:.4f} s cold, {runs[1]:.4f} s warm, peak memory {whole_peak:.3f} GiB, {evals} "
-                      "conv3d_bn_relu launches", flush=True)
+                print(f"[15] {card}: {network}'s whole-volume forward over {'x'.join(map(str, VOLUME))} (bf16, batch "
+                      f"1): {runs[0]:.4f} s cold, {runs[1]:.4f} s warm, peak memory {whole_peak:.3f} GiB, mask "
+                      f"{tuple(wmask.shape)}, {evals} conv3d_bn_relu launches", flush=True)
                 del big, wmask
             both = ""
             if network == "IS":  # its eval forward (out1 alone) against one that also runs both bands, alternated
@@ -1180,6 +1240,8 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
                   f"step {step_ms:.3f} ms (bf16, {BATCH}x{PATCH}^3), peak memory {peak:.3f} GiB; predict.main on "
                   f"{'x'.join(map(str, ZOO_VOLUME))} ({tiles} tiles, {batches} batches, {evals * batches} conv launches): "
                   f"{e2e:.3f} s end to end, the sliding window on the card {card_s:.4f} s{both}", flush=True)
+            if network in TRANSFORMERS:
+                config_patch_step(torch, dev, card, network, train)
 
         # -- each new conv shape against its plain version, bf16 at batch 16
         unet = {(ci, co, PATCH >> lv) for (ci, co), lv in zip(
@@ -1227,6 +1289,27 @@ def zoo_phase(torch, dev, card, zero_counters, read_counters, data):
         print(f"[15] export of ER-Net's whole-volume program at {'x'.join(map(str, ZOO_VOLUME))}: {export_s:.1f} s, "
               f"{len(blob):,} bytes; loaded, its mask is the Predictor's ({100 * want.mean():.2f}% foreground), "
               f"{launched} conv3d_bn_relu launches", flush=True)
+        # -- the export of VT-UNet's crop program: its roll, window partition and shift masks
+        net = model_class("vtnet")(2, 1)
+        state = zoo_state_dict(torch, net, SEED + 19)
+        vcfg = compose(["config=vtnet", f"config.patch_size={PATCH}, {PATCH}, {PATCH}",
+                        "config.patch_overlap=" + ", ".join(map(str, OVERLAP)), f"config.batch_size={BATCH}",
+                        "config.precision=bfloat16", f"config.output_dir={work / 'serve'}"], job_name="serve")
+        predictor = serving.Predictor(vcfg, model=net, params=state)
+        want = predictor.predict_array(raw)
+        t0 = time.perf_counter()
+        blob = serving.export_predictor(predictor, ZOO_VOLUME)
+        export_s = time.perf_counter() - t0
+        exported = serving.load_exported_predictor(blob)
+        zero_counters()
+        got = exported({k: v.to(dev) for k, v in state.items()}, transforms.ZNormalization().normalize_array(raw))
+        launched = read_counters()
+        check(got.shape == (1, *ZOO_VOLUME) and np.array_equal(got, want), "[15] the vtnet artifact's mask differs")
+        check(not any(launched.values()), f"[15] the vtnet artifact launched {launched}")
+        print(f"[15] export of VT-UNet's crop program at {'x'.join(map(str, ZOO_VOLUME))} ({PATCH}^3 tiles, batch "
+              f"{BATCH}): {export_s:.1f} s, {len(blob):,} bytes; loaded, its mask is the Predictor's "
+              f"({100 * want.mean():.2f}% foreground), no conv launch", flush=True)
+        del net, predictor, exported
         print(f"[15] {card}: the zoo's warm step ms / peak GiB / predict s end to end / s on the card: "
               + "; ".join(f"{n} {r[0]:.1f} / {r[1]:.2f} / {r[2]:.2f} / {r[3]:.4f}" for n, r in rows.items())
               + f"; [15] took {time.perf_counter() - t_phase:.1f} s", flush=True)

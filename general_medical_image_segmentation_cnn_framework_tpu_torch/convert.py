@@ -7,9 +7,11 @@ layouts (conv kernels [kd, kh, kw, Cin, Cout], or [kh, kw, Cin, Cout] in
 (``module_state_dict_from_flax``) maps every network module by module:
 each port module that owns variables records the Flax scope they sit in
 (``module.scope``, set by ``nn.blocks.ScopeNames``), and the leaves
-(TorchConv, TorchConvTranspose, BatchNorm, InstanceNorm, PReLU, Dense, and
-UNet3D's 1x1x1 head, an ``nn.Linear`` that takes the kernel transposed)
-read their Flax names. A module used twice (res_unet's shared convs, IS's
+(TorchConv, TorchConvTranspose, BatchNorm, InstanceNorm, LayerNorm, PReLU,
+Dense and VT-UNet's matmul convs, and UNet3D's 1x1x1 head, an
+``nn.Linear`` that takes the kernel transposed) read their Flax names, and
+a module's own parameters (UNETR's ``position_embeddings``, the window
+attention's ``relative_position_bias_table``) theirs. A module used twice (res_unet's shared convs, IS's
 shared encoder) is one port module in one Flax scope: one set of weights;
 SkipDenseNet3D's grouped transposed conv is one port module over the JAX
 one's per-group scopes.
@@ -65,13 +67,16 @@ def _leaf_from_flax(module: torch.nn.Module, params: Mapping, stats: Optional[Ma
     ``TorchConvTranspose_{g}``) concatenated along Cin, a 1x1x1 conv's
     kernel [1, 1, 1, Cin, Cout] as an ``nn.Linear``'s [Cout, Cin] weight,
     BatchNorm's ``scale``/``bias`` and ``mean``/``var`` statistics, an
-    affine InstanceNorm's ``scale``/``bias``, PReLU's ``alpha``, Dense's
-    ``kernel``/``bias``; the parameters a module names in ``flax_params``
-    (UNet++'s ``mix``, FCN32s's ``upscore_kernel``) under their own names;
+    affine InstanceNorm's and a LayerNorm's ``scale``/``bias``, PReLU's
+    ``alpha``, Dense's (and VT-UNet's matmul conv's) ``kernel``/``bias``;
+    the parameters a module names in ``flax_params`` (UNet++'s ``mix``,
+    FCN32s's ``upscore_kernel``, UNETR's ``position_embeddings``, the
+    window attention's ``relative_position_bias_table``) under their own
+    names;
     nothing else. A grouped conv's kernel [k.., Cin / g, Cout] is read as
     any other."""
     from .nn.blocks import Dense, PReLU, TorchConv, TorchConvTranspose
-    from .nn.norm import BatchNorm, InstanceNorm
+    from .nn.norm import BatchNorm, InstanceNorm, LayerNorm
 
     sd = {name: _t(params[name]) for name in getattr(module, "flax_params", ())}
     if isinstance(module, TorchConvTranspose) and module.groups > 1:
@@ -86,7 +91,7 @@ def _leaf_from_flax(module: torch.nn.Module, params: Mapping, stats: Optional[Ma
     elif isinstance(module, torch.nn.Linear):
         kernel = np.asarray(params["kernel"], dtype=np.float32)
         sd["weight"], sd["bias"] = _t(kernel.reshape(kernel.shape[-2:]).T), _t(params["bias"])
-    elif isinstance(module, (BatchNorm, InstanceNorm)):
+    elif isinstance(module, (BatchNorm, InstanceNorm, LayerNorm)):
         if module.weight is not None:
             sd["weight"], sd["bias"] = _t(params["scale"]), _t(params["bias"])
         if isinstance(module, BatchNorm) and stats is not None:
@@ -129,6 +134,7 @@ _SIGNATURES = (
     ("densevoxelnet", "_DenseLayer_0"), ("fcn3d", "_BilinearDeconv_0"), ("unetpp", "_BasicBlock_0"),
     ("segnet", "ConvBlock_24"), ("fcn2d", "upscore_kernel"), ("deeplab", "ResNetBackbone_0"),
     ("pspnet", "_ResNet34Dilated_0"), ("miniseg", "_DilatedParallelConvBlockD2_0"),
+    ("unetr", "_TransformerBlock_0"), ("vtnet", "SwinTransformerSys3D_0"),
 )
 
 

@@ -1,9 +1,11 @@
-"""``config.network`` -> model. Ported so far: ``unet`` (UNet3D), ``unet2d``
-(UNet2D), twelve of the 3-D zoo (``res_unet``, ``vnet``, ``highresnet``,
-``csrnet``, ``er_net``, ``re_net``, ``IS``, ``dunet``, ``fusionnet``,
-``densevoxelnet``, ``densenet``, ``fcn3d``) and seven 2-D nets
-(``highres2dnet``, ``segnet``, ``unetpp``, ``fcn2d``, ``deeplab``,
-``pspnet``, ``miniseg``), each at its JAX ``from_config`` width."""
+"""``config.network`` -> model: every network of the JAX package's zoo,
+``unet`` (UNet3D), ``unet2d`` (UNet2D), fourteen more 3-D ones
+(``res_unet``, ``vnet``, ``highresnet``, ``csrnet``, ``er_net``,
+``re_net``, ``IS``, ``dunet``, ``fusionnet``, ``densevoxelnet``,
+``densenet``, ``fcn3d`` and the transformers ``unetr`` and ``vtnet``) and
+seven 2-D nets (``highres2dnet``, ``segnet``, ``unetpp``, ``fcn2d``,
+``deeplab``, ``pspnet``, ``miniseg``), each at its JAX ``from_config``
+width."""
 
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ _MODELS = {
     "densevoxelnet": ("three_d.densevoxelnet3d", "DenseVoxelNet"),
     "densenet": ("three_d.densenet3d", "SkipDenseNet3D"),
     "fcn3d": ("three_d.fcn3d", "FCN3D"),
+    "unetr": ("three_d.unetr", "UNETR"),
+    "vtnet": ("three_d.vtnet", "VTUNet"),
     "highres2dnet": ("two_d.highresnet2d", "HighRes2DNet"),
     "segnet": ("two_d.segnet", "SegNet"),
     "unetpp": ("two_d.unetpp", "UNetPlusPlus"),
@@ -44,8 +48,6 @@ _MODELS = {
     "pspnet": ("two_d.pspnet", "PSPNet"),
     "miniseg": ("two_d.miniseg", "MiniSeg"),
 }
-# the JAX package's networks still to be ported (ROADMAP queue 1 item 11)
-UNPORTED = ("unetr", "vtnet")
 
 
 def is_2d(network: str) -> bool:
@@ -89,18 +91,11 @@ def model_kwargs(config, remat: bool = False) -> dict:
 
 
 def model_class(network: str) -> type:
-    """The port's class of ``network``; ``NotImplementedError`` for one of
-    the JAX package's networks not ported yet, ``KeyError`` otherwise."""
-    if network in _MODELS:
-        module, cls = _MODELS[network]
-        return getattr(importlib.import_module(f".{module}", __package__), cls)
-    if network in UNPORTED:
-        raise NotImplementedError(
-            f"network '{network}' is not ported to PyTorch yet; ported are "
-            f"{', '.join(repr(n) for n in _MODELS)}. The rest of the JAX package's zoo "
-            f"({', '.join(UNPORTED)}) comes in the order ROADMAP.md lists."
-        )
-    raise KeyError(f"unknown network '{network}'; available: {sorted((*_MODELS, *UNPORTED))}")
+    """The port's class of ``network``; ``KeyError`` for an unknown name."""
+    if network not in _MODELS:
+        raise KeyError(f"unknown network '{network}'; available: {sorted(_MODELS)}")
+    module, cls = _MODELS[network]
+    return getattr(importlib.import_module(f".{module}", __package__), cls)
 
 
 def make_forward(config, model: nn.Module) -> Callable:

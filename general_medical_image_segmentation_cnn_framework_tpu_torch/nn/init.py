@@ -74,10 +74,15 @@ def bias_initializer(init_type: str) -> Initializer:
     return lambda shape, gen: torch.zeros(tuple(shape))
 
 
+def truncated_normal(shape: Sequence[int], gen: torch.Generator, std: float) -> torch.Tensor:
+    """Flax's ``truncated_normal(stddev=std)``: a unit normal truncated at
+    two std, scaled so that the truncated draw has std ``std``."""
+    t = torch.empty(tuple(shape))
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * (std / _TRUNC_STD)
+
+
 def lecun_normal(shape: Sequence[int], gen: torch.Generator) -> torch.Tensor:
     """Flax's default kernel init (the UNet3D head is a plain ``nn.Conv``, not
     ``init_type``): a normal truncated at two std, std sqrt(1 / fan_in)."""
-    std = math.sqrt(1.0 / _fans(shape)[0]) / _TRUNC_STD
-    t = torch.empty(tuple(shape))
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return t * std
+    return truncated_normal(shape, gen, math.sqrt(1.0 / _fans(shape)[0]))

@@ -1,4 +1,4 @@
-"""BatchNorm and InstanceNorm over channels-last tensors with the JAX package's numerics.
+"""BatchNorm, InstanceNorm and LayerNorm over channels-last tensors with the JAX package's numerics.
 
 Eval uses the running statistics, and an eval ConvBlock does not call this
 module at all: it folds the four tensors into its conv
@@ -94,4 +94,26 @@ class InstanceNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight + self.bias
+        return y.to(self.dtype or x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm`` over the last axis (the transformers' norm):
+    statistics in f32 (f64 for an f64 input) with var = E[x^2] - E[x]^2
+    clamped at 0 (Flax's ``use_fast_variance``), eps 1e-6 (Flax's default,
+    not torch's 1e-5), y = (x - mean) * (rsqrt(var + eps) * weight) + bias
+    in that precision, cast to ``dtype`` (default: x's). Parameters
+    ``weight`` (the JAX ``scale``) and ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6, dtype=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = _stat(x)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf.square().mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(self.dtype or x.dtype)

@@ -8,7 +8,7 @@ program and a load of it, the offline filters, a forward of each of the nine 3-D
 zoo's first part at a narrow width, and a forward and a train step of each of the six of its second
 part (densevoxelnet, densenet, fcn3d, highres2dnet, segnet, unetpp) at their fixed widths and test sizes,
 the four of its third part (fcn2d, deeplab, pspnet, miniseg) built at their JAX widths and a forward and a
-train step of MiniSeg; no source of the port or ``chip_smoke.py`` imports
+train step of MiniSeg, a forward and a train step of each transformer (unetr, vtnet) at a narrow width; no source of the port or ``chip_smoke.py`` imports
 any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
 card."""
 
@@ -132,6 +132,17 @@ assert y.shape == (1, 1, 32, 32, 2) and y.dtype == torch.float32 and torch.isfin
 step = make_train_step(forward, make_optimizer(cfgz, net.train().parameters()), make_loss_and_metric(cfgz))
 loss, dice = step(torch.randn(2, 1, 32, 32, 1), (torch.rand(2, 1, 32, 32, 1) > 0.5).float())
 assert torch.isfinite(loss) and 0 <= float(dice) <= 1
+# the transformers at narrow widths: a forward and a train step each
+for network, args, patch in (("unetr", ((32, 16, 16), 1, 2, 32, 16, 4), (32, 16, 16)),
+                             ("vtnet", (2, 1, 12, 4), (32, 32, 32))):
+    cfgz = ConfigDict(network=network, out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3)
+    net = model_class(network)(*args).eval()
+    with torch.inference_mode():
+        y = net(torch.randn(1, *patch, 1))
+    assert y.shape == (1, *patch, 2) and y.dtype == torch.float32 and torch.isfinite(y).all(), network
+    step = make_train_step(net, make_optimizer(cfgz, net.train().parameters()), make_loss_and_metric(cfgz))
+    loss, dice = step(torch.randn(2, *patch, 1), (torch.rand(2, *patch, 1) > 0.5).float())
+    assert torch.isfinite(loss) and 0 <= float(dice) <= 1, network
 blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded

@@ -171,8 +171,12 @@ def test_registry_builds_unet2d_from_its_config():
     assert sum(p.numel() for p in model.parameters()) == N_PARAMS
     assert model.blocks[10].conv.weight.shape == (3, 3, 1024, 256)
     assert model.head.weight.shape == (1, 1, 64, 2) and model.head.weight.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(ConfigDict(network="vtnet", in_classes=1, out_classes=2))
+    # every network of the JAX package is ported: VT-UNet builds with the JAX parameter count (from
+    # jax.eval_shape), and only an unknown name is refused
+    vtnet = build_model(ConfigDict(network="vtnet", in_classes=1, out_classes=2, patch_size=(128, 128, 128)))
+    assert sum(p.numel() for p in vtnet.parameters()) == 20_738_556
+    with pytest.raises(KeyError, match="unknown network 'nope'"):
+        build_model(ConfigDict(network="nope", in_classes=1, out_classes=2))
 
 
 @pytest.mark.parametrize("init_type", ["normal", "kaiming"])

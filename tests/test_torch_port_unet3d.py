@@ -169,5 +169,9 @@ def test_registry_builds_unet3d_with_32_features_and_refuses_the_rest():
     assert isinstance(model, UNet3D) and model.dtype == torch.bfloat16
     assert model.blocks[0].conv.weight.shape == (3, 3, 3, 1, 32)
     assert model.blocks[0].conv.weight.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(ConfigDict(network="unetr", in_classes=1, out_classes=2))
+    # every network of the JAX package is ported: UNETR builds at its from_config width (64^3 patches: the
+    # JAX parameter count, from jax.eval_shape), and only an unknown name is refused
+    unetr = build_model(ConfigDict(network="unetr", in_classes=1, out_classes=2, patch_size=(64, 64, 64)))
+    assert sum(p.numel() for p in unetr.parameters()) == 146_249_282
+    with pytest.raises(KeyError, match="unknown network 'nope'"):
+        build_model(ConfigDict(network="nope", in_classes=1, out_classes=2))

@@ -5,7 +5,7 @@ gradients, the weights carried by ``convert.py``'s leaf map):
 (train mode, each padding mode), and the general ``TorchConv`` at V-Net's
 (k5 p2; k2 s2), CSR-Net's (k3 s4 p0) and HighResNet's (k3 dilation 2)
 settings (``test_torch_port_zoo3d_blocks.py``: the rest of the blocks); ``Dropout`` by its statistics; the
-registry's refusal of the six networks not ported yet.
+registry's last two networks, which it once refused, built at the JAX parameter counts.
 
 The ``cuda``-marked case holds the conv kernels at the ragged stems of
 Double U-Net (Cin 3) and FusionNet (Cin 4) against their plain versions on
@@ -20,7 +20,6 @@ from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one torc
 
 from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models import build_model
-from general_medical_image_segmentation_cnn_framework_tpu_torch.models.registry import UNPORTED
 from general_medical_image_segmentation_cnn_framework_tpu_torch.nn import blocks, norm, residual
 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_bn_relu as conv_op
 from general_medical_image_segmentation_cnn_framework_tpu_torch.ops import conv3d_wgrad as wgrad_op
@@ -119,11 +118,26 @@ def test_dropout_rate_broadcast_and_scale():
     assert torch.equal(again(x), drop.__class__(0.6, generator=torch.Generator().manual_seed(1)).train()(x))
 
 
-def test_registry_refuses_the_six_not_ported_yet():
-    assert UNPORTED == ("unetr", "vtnet")
-    for network in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(ConfigDict(network=network, in_classes=1, out_classes=2))
+def test_registry_refuses_the_six_not_ported_yet(jx):
+    """None is left: the last two, unetr and vtnet, build from their shipped
+    configs (configs/config/unetr.yaml, vtnet.yaml: 128^3 patches) with the
+    parameter counts of the JAX registry's models (``jax.eval_shape``);
+    an unknown name is still refused."""
+    from general_medical_image_segmentation_cnn_framework_tpu.config import compose as jax_compose
+    from general_medical_image_segmentation_cnn_framework_tpu.models.registry import build_model as jax_build_model
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
+
+    jax, jnp = jx
+    for network, want in (("unetr", 146_593_346), ("vtnet", 20_738_556)):
+        config = compose([f"config={network}"], make_run_dir=False)
+        assert tuple(config.patch_size) == (128, 128, 128)
+        model = build_model(config)
+        assert sum(p.numel() for p in model.parameters()) == want, network
+        flax_model = jax_build_model(jax_compose([f"config={network}"], make_run_dir=False))
+        shapes = jax.eval_shape(lambda: flax_model.init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)}, jnp.zeros((1, 128, 128, 128, 1)),
+            train=False))
+        assert sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(shapes["params"])) == want
     with pytest.raises(KeyError, match="unknown network 'nope'"):
         build_model(ConfigDict(network="nope", in_classes=1, out_classes=2))
 

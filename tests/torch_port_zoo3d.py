@@ -4,7 +4,7 @@ f64) on the CPU.
 
 Blocks (``against_jax``): a block's output, input gradient and parameter
 gradients against the Flax block's, the weights carried by ``convert.py``'s
-map. Networks (``check_*``): fifteen networks with the same weights
+map. Networks (``check_*``): the zoo's networks with the same weights
 carried across by ``convert.py`` (the network and its widths told from the
 Flax tree). Each JAX tree comes from ``jax.eval_shape`` filled by seeded
 numpy draws (``fill``), and each JAX function runs once under ``jax.jit``
@@ -14,7 +14,9 @@ CSR-Net and IS init_features 4, Double U-Net 8 (coarse 4), FusionNet 4 and
 4 around the fixed-width V-Net, all at 16^3; V-Net, HighResNet, ER-Net,
 RE-Net, DenseVoxelNet, SkipDenseNet3D (16^3), FCN3D (24^3, the least its
 k7 VALID head and crops allow), HighRes2DNet, SegNet and UNet++ (32^2
-slices; a 2-D net's batch is [n, s, s, 1]) have fixed widths.
+slices; a 2-D net's batch is [n, s, s, 1]) have fixed widths; UNETR at
+embed 32, 4 heads (its decoder's widths are fixed) and VT-UNet at embed 12,
+window 4, both at 32^3 (the JAX ``tests/test_zoo.py`` sizes).
 
 The JAX package needs flax, which the card's machine lacks (its only test
 here is the blocks' ``cuda`` case): the network checks' imports are made
@@ -33,7 +35,6 @@ import torch
 from general_medical_image_segmentation_cnn_framework_tpu_torch.checkpoint import load_checkpoint
 from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
     convert_checkpoint,
-    model_for_tree,
     module_state_dict_from_flax,
     network_of,
 )
@@ -50,11 +51,12 @@ if importlib.util.find_spec("flax") is not None:
     from general_medical_image_segmentation_cnn_framework_tpu.config import ConfigDict
     from general_medical_image_segmentation_cnn_framework_tpu.models.three_d import (
         csrnet, densenet3d, densevoxelnet3d, double_unet, er_net, fcn3d, fusionnet, highresnet, is_net, re_net,
-        residual_unet3d, vnet3d,
+        residual_unet3d, unetr, vnet3d, vtnet,
     )
     from general_medical_image_segmentation_cnn_framework_tpu.models.two_d import (
         deeplab, fcn2d, highresnet2d, miniseg, pspnet, segnet, unetpp,
     )
+    from general_medical_image_segmentation_cnn_framework_tpu.nn import attention as jax_attention
     from general_medical_image_segmentation_cnn_framework_tpu.nn import norm as jax_norm
     from general_medical_image_segmentation_cnn_framework_tpu.ops.fft import band_split
 
@@ -84,6 +86,9 @@ def fill(tree, seed):
         "mean": lambda s: rng.normal(0.0, 0.2, s), "var": lambda s: rng.uniform(0.5, 2.0, s),
         "alpha": lambda s: rng.uniform(0.1, 0.4, s), "mix": lambda s: rng.uniform(0.5, 1.5, s),
         "upscore_kernel": lambda s: rng.normal(0.0, np.prod(s[:-1]) ** -0.5, s),
+        # the transformers' own parameters, far from their zero / 0.02 init so that they move the output
+        "position_embeddings": lambda s: rng.normal(0.0, 0.5, s),
+        "relative_position_bias_table": lambda s: rng.normal(0.0, 0.5, s),
     }
 
     def walk(t):
@@ -151,13 +156,23 @@ NETS = {
     "deeplab_shallow": ("deeplab", lambda: deeplab.DeepLabV3(1, 2), 32),
     "fcn2d": ("fcn2d", lambda: fcn2d.FCN32s(1, 2), 32),
     "fcn2d_16": ("fcn2d", lambda: fcn2d.FCN32s(1, 2), 16),  # FCN32s's least size: fc6 sees 1^2
+    # the transformers at the JAX tests' narrow sizes (tests/test_zoo.py): UNETR's 16^3 patches give 2^3 tokens
+    "unetr": ("unetr", lambda: unetr.UNETR((32,) * 3, 1, 2, embed_dim=32, num_heads=4), 32),
+    "vtnet": ("vtnet", lambda: vtnet.VTUNet(2, 1, embed_dim=12, win_size=4, img_size=(32,) * 3), 32),
+    # UNETR's train step on 32x16x16: 2 tokens (not 1, where the softmax is constant), a quarter of 32^3's convs
+    "unetr_step": ("unetr", lambda: unetr.UNETR((32, 16, 16), 1, 2, embed_dim=32, num_heads=4), (32, 16, 16)),
 }
+# what the port's ``from_flax`` cannot read from a case's tree: UNETR's heads
+PORT_KW = {"unetr": dict(num_heads=4), "unetr_step": dict(num_heads=4)}
+# cases whose JAX train step compiles at XLA's backend optimisation level 0 (``compiled``'s ``fast``)
+FAST_STEP = {"vtnet": True}
 TWO_D = ("highres2dnet", "segnet", "unetpp", "miniseg", "pspnet", "deeplab", "deeplab_shallow", "fcn2d", "fcn2d_16")
 
 
 def spatial(case):
-    """The spatial shape of the case's model input: s^3, or s^2 for a 2-D net."""
-    return (NETS[case][2],) * (2 if case in TWO_D else 3)
+    """The spatial shape of the case's model input: s^3, or s^2 for a 2-D net (or the case's own shape)."""
+    s = NETS[case][2]
+    return s if isinstance(s, tuple) else (s,) * (2 if case in TWO_D else 3)
 
 
 def config_of(case):
@@ -217,9 +232,11 @@ def batch(case, n=2, seed=5):
     return np.random.default_rng(seed).normal(size=(n, *spatial(case), 1)).astype(np.float32)
 
 
-def port_model(case, variables):
-    """The port model of the tree's network and widths, with its weights."""
-    model = model_for_tree(variables["params"])
+def port_model(case, variables, **kwargs):
+    """The port model of the tree's network and widths (and ``kwargs``, for
+    the constructor), with its weights."""
+    assert network_of(variables["params"]) == NETS[case][0]
+    model = model_class(NETS[case][0]).from_flax(variables["params"], **PORT_KW.get(case, {}), **kwargs)
     model.load_state_dict(module_state_dict_from_flax(model, variables["params"], variables["batch_stats"]))
     return model
 
@@ -296,6 +313,52 @@ def check_checkpoint_converts(case, tmp_path, with_adam=True, native=False):
             torch.testing.assert_close(optimizer.state[p][key], tensors[name], rtol=0, atol=0)
 
 
+def check_converted_predict(case, tmp_path, raw):
+    """A JAX msgpack ``.ckpt`` of the case (weights only) converted by
+    ``convert.py``: its tensors are the port model's one to one, and served
+    by the port (``serving.Predictor`` on the CPU, f32, the case's model
+    given, its weights from the converted file) the mask of the raw [1, X,
+    Y, Z] volume (one tile: ``patch_size`` is its shape) is the argmax of the
+    JAX model's logits on the z-normalised volume. Returns the mask's
+    foreground share."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import ConfigDict as PortConfig
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data.transforms import ZNormalization
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.serving import Predictor
+
+    _, variables = jax_model(case)
+    src, dst = tmp_path / "latest_checkpoint.ckpt", tmp_path / "port.pt"
+    try:
+        save_checkpoint(src, variables["params"], variables["batch_stats"], {}, epoch=1)
+        convert_checkpoint(src, dst)
+        params = load_checkpoint(dst)["params"]
+    finally:
+        src.unlink(missing_ok=True)
+        dst.unlink(missing_ok=True)
+    model = port_model(case, variables)
+    assert params.keys() == model.state_dict().keys()
+    for k, v in model.state_dict().items():
+        torch.testing.assert_close(params[k], v, rtol=0, atol=0)
+    cfg = PortConfig(network=NETS[case][0], in_classes=1, out_classes=2, patch_size=raw.shape[1:],
+                     patch_overlap=(4, 4, 4), batch_size=1, precision="float32", platform="cpu")
+    mask = Predictor(cfg, model=model, params=params).predict_array(raw)
+    x = ZNormalization().normalize_array(raw).transpose(1, 2, 3, 0)[None]
+    logits = jax_logits(case, variables, x)
+    assert mask.shape == (1, *raw.shape[1:]) and mask.dtype == np.int32
+    assert_mask_of(mask, logits)
+    return float(logits.argmax(-1).mean())
+
+
+def assert_mask_of(mask, logits):
+    """``mask`` is the argmax of the JAX ``logits`` [1, X, Y, Z, 2] but where
+    the two logits are within 4e-4 of their scale (twice the eval logits'
+    bar of ``check_eval_logits``: f32 rounding may flip such a voxel)."""
+    want = logits.argmax(-1)
+    flips = mask != want
+    margin = np.abs(logits[..., 1] - logits[..., 0])
+    assert (margin[flips] <= 4e-4 * max(1.0, float(np.abs(logits).max()))).all(), margin[flips].max()
+    assert flips.mean() <= 1e-3, flips.mean()
+
+
 def check_registry(network):
     """``build_model`` at the JAX ``from_config`` width (bf16 compute, f32
     parameters) has the JAX model's parameter count, from the
@@ -335,7 +398,8 @@ def _jax_step(case, module, variables, inputs, gt, f64=True):
     (``_NormsInF64``), and ``make_loss_and_metric``'s binary BCE on the f32
     logits the model returns; one jit on XLA's native conv route at its
     default level (its level-0 f64 code runs several times slower than it
-    compiles faster)."""
+    compiles faster), or at level 0 for a case in ``FAST_STEP`` (VT-UNet:
+    no conv, and a compile that level 0 cuts from 36 to 23 s)."""
     if f64:
         as64 = functools.partial(jax.tree_util.tree_map, lambda a: np.asarray(a, np.float64))
         module, variables, inputs = module.clone(dtype=jnp.float64), as64(variables), as64(inputs)
@@ -349,9 +413,11 @@ def _jax_step(case, module, variables, inputs, gt, f64=True):
 
     with jax.enable_x64(f64), pytest.MonkeyPatch.context() as patch:
         if f64:
-            patch.setattr(jax_norm, "jnp", _NormsInF64())
+            for source in (jax_norm, jax_attention, unetr):
+                patch.setattr(source, "jnp", _NormsInF64())
         args = (variables["params"], jnp.asarray(gt), *map(jnp.asarray, inputs))
-        (loss, updates), grads = compiled(True, jax.value_and_grad(loss_fn, has_aux=True), *args, fast=False)(*args)
+        step = compiled(True, jax.value_and_grad(loss_fn, has_aux=True), *args, fast=FAST_STEP.get(case, False))
+        (loss, updates), grads = step(*args)
         return float(loss), jax.tree_util.tree_map(np.asarray, updates), jax.tree_util.tree_map(np.asarray, grads)
 
 
@@ -373,11 +439,12 @@ def _port_step(case, model, inputs, gt):
     return loss.item(), model
 
 
-def gradient_distances(model, jax_grads):
+def gradient_distances(model, jax_grads, zero_floor=1e-9):
     """{parameter: distance of the port's gradient to JAX's}: relative L2,
-    or, for a gradient JAX gives as 0 to within 1e-9 of the norm of all of
-    them (a conv bias in front of a norm, which removes any shift; IS's
-    second and third decoders and out2 head, which do not reach the loss),
+    or, for a gradient JAX gives as 0 to within ``zero_floor`` of the norm
+    of all of them (a conv bias in front of a norm, which removes any
+    shift; IS's second and third decoders and out2 head, which do not reach
+    the loss; an attention's key bias, whose shift the softmax ignores),
     the absolute L2 over that norm."""
     want = module_state_dict_from_flax(model, jax_grads)
     named = dict(model.named_parameters())
@@ -387,16 +454,17 @@ def gradient_distances(model, jax_grads):
     for name, w in want.items():
         got = named[name].grad if named[name].grad is not None else torch.zeros_like(w)
         diff, norm = float((got.double() - w.double()).norm()), float(w.double().norm())
-        out[name] = diff / norm if norm > 1e-9 * total else diff / total
+        out[name] = diff / norm if norm > zero_floor * total else diff / total
     return out
 
 
 class _NormsInF64:
-    """``jax.numpy`` as the JAX package's ``nn/norm.py`` sees it in the f64
-    step: its ``float32`` is float64, so that the norms' statistics, which
-    it computes in f32 whatever the input, follow the model's f64. Looked
-    up when used, not when the class is made: this module is imported where
-    flax, and so ``jnp`` here, is missing (the card's machine)."""
+    """``jax.numpy`` as the JAX package's ``nn/norm.py``, ``nn/attention.py``
+    and UNETR see it in the f64 step: its ``float32`` is float64, so that
+    the norms' statistics and the attention's softmax, which they compute in
+    f32 whatever the input, follow the model's f64. Looked up when used, not
+    when the class is made: this module is imported where flax, and so
+    ``jnp`` here, is missing (the card's machine)."""
 
     def __getattr__(self, name):
         return jnp.float64 if name == "float32" else getattr(jnp, name)
@@ -406,9 +474,10 @@ def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e
     """One train step of the port against the JAX package's (binary BCE;
     IS with the same FFT bands on both sides, JAX's ``band_split``: the
     port's is held to it in ``test_torch_port_zoo3d_layers.py``), dropout
-    off on both sides. The JAX step runs in f64 (``_jax_step``): the exact
-    value of the JAX function, up to the f32 logits and loss both packages
-    keep.
+    (and the transformers' DropPath) off on both sides. The JAX step runs in
+    f64 (``_jax_step``): the exact value of the JAX function, up to the f32
+    logits and loss both packages keep (UNETR's JAX logits stay f64 there,
+    as ``_NormsInF64`` reaches its final cast).
 
     The port's f32 step: its loss within 1e-5 of JAX's, the BatchNorm
     running statistics the forward leaves within ``stats_tol`` (rtol,
@@ -433,6 +502,7 @@ def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e
     import flax.linen
 
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    monkeypatch.setattr(jax_attention.DropPath, "__call__", lambda self, x, train: x)
     module, variables = jax_model(case, True)
     x = batch(case, n=n, seed=12)
     gt = (np.random.default_rng(13).uniform(size=x.shape) > 0.5).astype(np.float32)
@@ -453,8 +523,7 @@ def check_train_step(case, monkeypatch, n=4, stats_tol=(1e-5, 1e-6), grad_tol=1e
         if "running_" in k:
             np.testing.assert_allclose(v.numpy(), want_state[k].numpy(), *stats_tol, err_msg=k)
 
-    model64 = model_class(NETS[case][0]).from_flax(variables["params"], dtype=torch.float64)
-    model64.load_state_dict(module_state_dict_from_flax(model64, variables["params"], variables["batch_stats"]))
+    model64 = port_model(case, variables, dtype=torch.float64)
     _port_step(case, model64, [t.astype(np.float64) for t in inputs], gt)
     distance = gradient_distances(model64, grads)
     worst = max(distance, key=distance.get)
@@ -517,24 +586,27 @@ def check_adamw_unused(case, monkeypatch):
     assert all(float(optimizer.state[p]["step"]) == 1.0 for p in model.parameters())
 
 
-def check_train_step_f32(case, monkeypatch, n, leaf_tol):
+def check_train_step_f32(case, monkeypatch, n, leaf_tol, zero_floor=1e-9):
     """One train step of the port against the JAX package's, both in f32,
-    dropout off on both sides, for a network without BatchNorm (FCN32s),
-    whose f64 JAX step is too slow for tier 1: the loss within 1e-5 and
-    every parameter's gradient on its own within ``leaf_tol`` of JAX's
-    (``gradient_distances``); the test states how ``leaf_tol`` follows
-    from the distance of the JAX package's own f32 gradients to its f64
-    ones. Returns the distances."""
+    dropout off on both sides, for a network whose f64 JAX step is too slow
+    for tier 1 (FCN32s, UNETR): the loss within 1e-5 and every parameter's
+    gradient on its own within ``leaf_tol`` of JAX's
+    (``gradient_distances``, with ``zero_floor``: in f32 a gradient that is
+    0 but for rounding, a conv bias in front of BatchNorm, is f32 noise,
+    not 1e-9 of the whole); the test states how ``leaf_tol`` follows from
+    the distance of the JAX package's own f32 gradients to its f64 ones.
+    Returns the distances."""
     import flax.linen
 
     monkeypatch.setattr(flax.linen, "Dropout", _NoDropout)
+    monkeypatch.setattr(jax_attention.DropPath, "__call__", lambda self, x, train: x)
     module, variables = jax_model(case, True)
     x = batch(case, n=n, seed=12)
     gt = (np.random.default_rng(13).uniform(size=x.shape) > 0.5).astype(np.float32)
     loss, _, grads = _jax_step(case, module, variables, [x], gt, f64=False)
     got, model = _port_step(case, port_model(case, variables), [x], gt)
     assert abs(got - loss) <= 1e-5 * loss
-    distance = gradient_distances(model, grads)
+    distance = gradient_distances(model, grads, zero_floor)
     worst = max(distance, key=distance.get)
     assert distance[worst] <= leaf_tol, (worst, distance[worst])
     return distance
