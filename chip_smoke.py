@@ -200,9 +200,53 @@ each of which stops the run with a non-zero exit when it fails:
    shape against its plain version and cuDNN as in [15]; f32 logits card
    against CPU on 2 x 1 x 64^2.
 
-Phases [3], [7], [10], [12], [13], [14], [15] and [16]'s train, predict and serve runs are the main paths:
+17. The data backends and the epoch graph at full width, on [10]'s two
+   256x256x128 volumes: ``data/device_aug.augment_pair`` on the card, warm,
+   in ms per volume for the affine and the elastic branch (CUDA events: its
+   steps up to the OneOf, then each branch on their output), with
+   the host stack (``transforms.build_transform(aug=true)`` and each branch)
+   in s on one volume; the affine and elastic resamples with fixed
+   parameters on the card against the CPU (images within 1e-4 of their
+   scale, labels binary and agreeing on at least 99.9% of the voxels).
+   ``train.main config=unet aug=true`` (device backend) for 2 epochs of 2
+   steps of 16 x 64^3: finite losses, [7]'s launches a step, and an epoch's
+   augmentation time. ``train.main config=unet epoch_scan=true`` for 2
+   epochs of 4 steps with ``scheduler_step_size=1 scheduler_gamma=0``:
+   finite losses; step 0 runs eagerly (the warm-up before the capture) and
+   the wrappers count its launches, [7]'s a step; the other 7 steps replay
+   the graph, past the wrappers: one replay of the run's own graph, profiled,
+   launches by name what the eager step launched, and each of the 7 adds
+   that step's launches (``replayed_launches``); every
+   parameter of ``checkpoint_0002.ckpt`` equal to ``checkpoint_0001.ckpt``'s
+   bit for bit (lr 0 reached the replays) while BatchNorm's statistics
+   moved; a per-step ``train.main`` resumes that checkpoint (the graph's
+   capturable Adam) for a third epoch. For unet and unet2d, three copies of
+   the model from the same init, one epoch function each
+   (``ops/epoch_scan.make_epoch_scan``): the graph and two eager loops of
+   the same step on the same plans, ms per step by CUDA events over an
+   epoch of 4 replays, in turns (graph, eager, eager, graph); the first
+   replayed step's loss within 1e-3 (relative) of the eager loop's; the
+   weights after the first epoch no further from the eager loop's, in
+   relative L2, than twice the two eager loops' distance plus 1e-6 (UNet2D's
+   step is not reproducible run to run, UNet3D's is bit for bit), with the
+   operations torch flags as not reproducible in one eager step, the two
+   eager loops' distance under SGD, and the spread of UNet2D's bilinear
+   upsampling backward run twice on the same inputs; one
+   replay's hand kernels counted by name under ``torch.profiler`` equal to
+   one eager step's (unet: 35 conv, 18 wgrad, 1 + 1 loss at KD = 3; unet2d
+   the same at KD = 1). res_unet (Dropout 0.6) under ``epoch_scan``:
+   ``train.main`` for an epoch of 2 steps (step 0 eager, one replay, counted
+   as above) with finite losses, and 3 replays of its graph, whose dropped
+   positions (a forward hook captured with the step) differ from replay to
+   replay at every level. ``data_backend=grain grain_workers=2``: the first
+   batch equals ``grain_workers=0``'s, pinned; the loader alone in batches
+   per second; ``train.main`` for an epoch of 2 steps.
+
+Phases [3], [7], [10], [12], [13], [14], [15], [16] and [17]'s train, predict and serve runs are the main paths:
 every launch counter is set to 0 just before each and read just after; a
-kernel's ``launches`` in the kernel line is the sum over all of them. The kernel line's times are sums over the
+kernel's ``launches`` in the kernel line is the sum over all of them, with
+the launches of an ``epoch_scan`` run's replays (a wrapper counts only what
+it launches, not what it records into a graph under capture). The kernel line's times are sums over the
 convs of one train step: conv3d_bn_relu the 18 forward convs, conv3d_input_grad
 the 17 input gradients, conv3d_wgrad the 18 weight gradients (bf16), at
 UNet3D's shapes; conv2d_* the same at UNet2D's; the loss kernels' ``ms`` is
@@ -1473,6 +1517,473 @@ def zoo2d_phase(torch, dev, card, zero_counters, read_counters, data):
     return errs
 
 
+def hand_kernel_counts(per_call):
+    """{kind: launches} of the hand-written kernels in ``profiled_ms``'s
+    {kernel name: launches per call}: "conv KD=k" (``conv_wgmma``,
+    ``conv3d_bn_relu_bf16`` / ``_f32``: the forward and the input gradient),
+    "wgrad KD=k" (``wgrad_gather``, ``wgrad_slab``, ``wgrad_stem``,
+    ``wgrad_fma``), ``bce_dice_forward``, ``bce_dice_backward``; k is the
+    kernel's first template argument, its depth taps (3 in 3-D, 1 in 2-D)."""
+    counts = {}
+    for key, n in per_call.items():
+        name = key.replace("void ", "").replace("(anonymous namespace)::", "")
+        base = name.split("<")[0].split("(")[0]
+        taps = name.split("<", 1)[1].split(",")[0].split(">")[0] if "<" in name else ""
+        if base in ("conv_wgmma", "conv3d_bn_relu_bf16", "conv3d_bn_relu_f32"):
+            kind = f"conv KD={taps}"
+        elif base in ("wgrad_gather", "wgrad_slab", "wgrad_stem", "wgrad_fma"):
+            kind = f"wgrad KD={taps}"
+        elif base in ("bce_dice_forward", "bce_dice_backward"):
+            kind = base
+        else:
+            continue
+        counts[kind] = counts.get(kind, 0) + n
+    return counts
+
+
+KIND = {"conv3d_bn_relu": "conv KD=3", "conv3d_input_grad": "conv KD=3", "conv3d_wgrad": "wgrad KD=3",
+        "conv2d_bn_relu": "conv KD=1", "conv2d_input_grad": "conv KD=1", "conv2d_wgrad": "wgrad KD=1",
+        "bce_dice_sums": "bce_dice_forward", "bce_dice_grads": "bce_dice_backward"}
+
+
+def replayed_launches(torch, scan, eager, note):
+    """({wrapper: launches} that ``scan``'s graph made in its replays, one
+    replay's hand kernels by name). ``eager`` is the run's wrapper counts,
+    which hold only its eager steps (``scan.eager_steps``: step 0 of each
+    epoch that captured the graph); one replay of the run's own graph,
+    profiled at step 0, must launch by name what one of those steps
+    launched; each replay then counts as one eager step's launches."""
+    per_step = {k: v // scan.eager_steps for k, v in eager.items()}
+    check(scan.eager_steps > 0 and all(v == per_step[k] * scan.eager_steps for k, v in eager.items()),
+          f"[17] {note}: {eager} over {scan.eager_steps} eager steps")
+    want = {}
+    for k, v in per_step.items():
+        if v:
+            want[KIND[k]] = want.get(KIND[k], 0) + v
+
+    def step_0():  # the plan's step 0 again: any number of calls stays inside the plan
+        scan.counter.zero_()
+        scan.graph.replay()
+
+    # 10 calls: the profiler may miss the first events of its window, and profiled_ms rounds
+    replay = hand_kernel_counts(profiled_ms(torch, step_0, calls=10)[1])
+    check(replay == want, f"[17] {note}: one replay's hand kernels {replay}, one eager step's {want}")
+    return {k: v * scan.replays for k, v in per_step.items()}, replay
+
+
+def nondeterministic_ops(torch, fn):
+    """The operations that torch flags as not run-to-run reproducible on
+    the card in one call of ``fn``, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    found = set()
+    for w in caught:
+        msg = str(w.message)
+        if " does not have a deterministic implementation" in msg:
+            found.add(msg.split(" does not have a deterministic implementation")[0])
+        elif "CuBLAS" in msg:
+            found.add("cuBLAS")
+    return sorted(found)
+
+
+def upsample_backward_spread(torch, dev):
+    """Max |difference| between two runs of the backward of UNet2D's decoder
+    upsampling (``nn.blocks.resize_linear_align_corners``: bilinear,
+    align_corners) on the same inputs and cotangents, at its four shapes
+    (16 x 8^2 x 512 to 16 x 64^2 x 64, doubled), bf16: 0 where it is
+    reproducible."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import resize_linear_align_corners
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    spread = []
+    for side, ch in ((8, 512), (16, 256), (32, 128), (64, 64)):
+        x = torch.randn(BATCH, side, side, ch, device=dev, generator=gen).bfloat16().requires_grad_()
+        g = torch.randn(BATCH, 2 * side, 2 * side, ch, device=dev, generator=gen).bfloat16()
+        dx = [torch.autograd.grad(resize_linear_align_corners(x, (2 * side, 2 * side)), x, g)[0].float()
+              for _ in range(2)]
+        spread.append((dx[0] - dx[1]).abs().max().item())
+    return spread
+
+
+def graph_against_eager(torch, dev, cfg, steps, tag):
+    """[17]'s epoch graph against the eager loop of the same step, at full
+    width on ``cfg``'s volumes: three copies of the model (the seeded init),
+    three ``EpochScan``s on the stacked store: the graph's and two eager
+    loops', whose distance is the eager step's own run-to-run spread. Three
+    epochs of ``steps`` steps of the same plans. Returns a dict: "losses"
+    of the first epoch (graph, eager, eager again; the graph's step 0 runs
+    eagerly, its step 1 is the first replay), "distance" and "spread", the
+    weights' relative L2 distance after that epoch, graph against eager and
+    eager against eager again; "sgd_spread", the latter with SGD (momentum
+    0.9) in place of Adam; "ms" {"graph": [...], "eager": [...]} per
+    step over the next two epochs in turns (graph, eager, eager, graph);
+    "replay" and "eager_step", the hand kernels of one replay and of one
+    eager step by name; "nondeterministic", the operations torch flags in
+    one eager step."""
+    import copy
+
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import models, optim, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import make_dataset
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.epoch_scan import (
+        build_epoch_plan, make_epoch_scan, stack_store,
+    )
+
+    dataset = make_dataset(cfg, is_train=True, device=dev)
+    volumes = stack_store([v[0] for v in dataset.volumes])
+    labels = stack_store([v[1] for v in dataset.volumes])
+    shapes = np.asarray([v[0].shape[:3] for v in dataset.volumes])
+    del dataset
+    nets = [models.build_model(cfg).to(dev).train()]
+    nets += [copy.deepcopy(nets[0]) for _ in range(2)]
+    scans = []
+    for net in nets:
+        opt = optim.make_optimizer(cfg, net.parameters())
+        step = train.make_train_step(models.make_forward(cfg, net), opt, train.make_loss_and_metric(cfg))
+        scans.append(make_epoch_scan(cfg, net, opt, step, volumes, labels))
+    graph, eager, again = scans
+    rng = np.random.default_rng(SEED + 17)
+    plans = [build_epoch_plan(len(shapes), steps * BATCH // len(shapes), BATCH, shapes, cfg.patch_size, rng)
+             for _ in range(3)]
+    check(all(len(p[0]) == steps for p in plans), f"[17] {tag} plan of {len(plans[0][0])} steps, not {steps}")
+
+    def run_graph(plan):
+        return graph(*plan)[0]
+
+    def run_eager(plan, scan=eager):
+        scan.start_epoch(*plan)
+        for _ in range(steps):
+            scan.step()
+        return scan.losses.clone()
+
+    def timed(fn, plan):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        losses = fn(plan)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / steps, losses
+
+    def weights(net):
+        return torch.cat([p.detach().flatten().float() for p in net.parameters()])
+
+    out = {"losses": [run_graph(plans[0]).cpu(), run_eager(plans[0]).cpu(), run_eager(plans[0], again).cpu()]}
+    check(graph.graph is not None and (graph.eager_steps, graph.replays) == (1, steps - 1),
+          f"[17] {tag}: graph {graph.graph}, {graph.eager_steps} eager steps, {graph.replays} replays")
+    for losses in out["losses"]:
+        check(torch.isfinite(losses).all().item(), f"[17] {tag} losses {losses.tolist()}")
+    w = [weights(net) for net in nets]
+    out["distance"] = ((w[0] - w[1]).norm() / w[1].norm()).item()
+    out["spread"] = ((w[2] - w[1]).norm() / w[1].norm()).item()
+    del w
+    sgd_cfg = copy.deepcopy(cfg)
+    sgd_cfg.optimizer, sgd_cfg.momentum = "sgd", 0.9
+    sgd_nets = [models.build_model(sgd_cfg).to(dev).train()]
+    sgd_nets.append(copy.deepcopy(sgd_nets[0]))
+    for net in sgd_nets:
+        opt = optim.make_optimizer(sgd_cfg, net.parameters())
+        step = train.make_train_step(models.make_forward(sgd_cfg, net), opt, train.make_loss_and_metric(sgd_cfg))
+        run_eager(plans[0], make_epoch_scan(sgd_cfg, net, opt, step, volumes, labels))
+    w = [weights(net) for net in sgd_nets]
+    out["sgd_spread"] = ((w[1] - w[0]).norm() / w[0].norm()).item()
+    del w, sgd_nets, opt, step
+    out["ms"] = {"graph": [], "eager": []}
+    for name, plan in (("graph", plans[1]), ("eager", plans[1]), ("eager", plans[2]), ("graph", plans[2])):
+        ms, losses = timed(run_graph if name == "graph" else run_eager, plan)
+        check(torch.isfinite(losses).all().item(), f"[17] {tag} {name} losses {losses.tolist()}")
+        out["ms"][name].append(ms)
+
+    def at_step_0(scan, run):
+        def call():  # the plan's step 0 again: any number of calls stays inside the plan
+            scan.counter.zero_()
+            run()
+        return call
+
+    # 10 calls each: the profiler may miss the first events of its window, and profiled_ms rounds
+    graph.start_epoch(*plans[0])
+    out["replay"] = hand_kernel_counts(profiled_ms(torch, at_step_0(graph, graph.graph.replay), calls=10)[1])
+    eager.start_epoch(*plans[0])
+    out["eager_step"] = hand_kernel_counts(profiled_ms(torch, at_step_0(eager, eager.step), calls=10)[1])
+    again.start_epoch(*plans[0])
+    out["nondeterministic"] = nondeterministic_ops(torch, again.step)
+    torch.cuda.synchronize()
+    del scans, graph, eager, again, nets, volumes, labels
+    return out
+
+
+def data_phase(torch, dev, card, zero_counters, read_counters, add_launches, data):
+    """Phase [17]: on-device augmentation, the epoch graph and the worker
+    loader at full width (see the module docstring)."""
+    from general_medical_image_segmentation_cnn_framework_tpu_torch import checkpoint, models, optim, train
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.config import compose
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import device_aug as aug
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data import make_dataset, pipeline, transforms
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.data.grain_pipeline import WorkerPatchDataset
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.nn.blocks import Dropout
+    from general_medical_image_segmentation_cnn_framework_tpu_torch.ops.epoch_scan import (
+        build_epoch_plan, make_epoch_scan, stack_store,
+    )
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT / "build"))
+    pairs = list(zip(sorted((data / "source").glob("*.nii.gz")), sorted((data / "label").glob("*.nii.gz"))))
+    per_step = {"conv3d_bn_relu": 18, "conv3d_input_grad": 17, "conv3d_wgrad": 18, "bce_dice_sums": 1,
+                "bce_dice_grads": 1, "conv2d_bn_relu": 0, "conv2d_input_grad": 0, "conv2d_wgrad": 0}
+
+    def base_argv(name, *extra):
+        return [f"config.data_path={data / 'source'}", f"config.gt_path={data / 'label'}",
+                f"config.output_dir={work / name}", f"config.batch_size={BATCH}",
+                "config.epochs_per_checkpoint=1000", *extra]
+
+    def unet_argv(name, *extra):
+        return ["config=unet", f"config.patch_size={PATCH}, {PATCH}, {PATCH}", *base_argv(name, *extra)]
+
+    def run_train(name, argv, eager_steps, note):
+        """train.main(argv), writing under work / name: (its result, the run dir, the logged losses,
+        the wall seconds, the wrappers' launch counts, those of an epoch_scan run's replays and one
+        replay's hand kernels by name). The wrapper counts are checked against eager_steps of
+        per_step (None: not checked); an epoch_scan run's replays count by replayed_launches."""
+        zero_counters()
+        t0 = time.perf_counter()
+        out = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counters()
+        if eager_steps is not None:
+            want = {k: v * eager_steps for k, v in per_step.items()}
+            check(got == want, f"[17] {note} train launches {got} != {want}")
+        replayed, replay = {}, None
+        if out["scan"] is not None:
+            replayed, replay = replayed_launches(torch, out["scan"], got, note)
+            add_launches(replayed)
+        (run,) = (work / name).glob("train-*/*")
+        losses = [float(line.split(":", 1)[1]) for line in (run / "train.log").read_text().splitlines()
+                  if line.startswith("Loss: ")]
+        check(all(math.isfinite(v) for v in losses), f"[17] {note} losses {losses}")
+        return out, run, losses, wall, got, replayed, replay
+
+    try:
+        # -- 17.1 the augmentation on the card, per volume and by branch; the host stack; card vs CPU
+        subjects = [pipeline.load_subject(p) for p in pairs]
+        on_card = [(torch.from_numpy(s.source.data).to(dev), torch.from_numpy(s.gt.data).to(dev)) for s in subjects]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+        def prefix(src, gt):  # augment_pair up to its OneOf: bias field, z-normalisation, noise, flip
+            src = src.float() * aug.polynomial_bias_field(gen, src.shape[1:])[None]
+            return aug.random_flip_pair(gen, aug.random_noise(gen, aug.znormalize(src)), gt.float())
+
+        branch_ms = {"affine": [], "elastic": []}
+        for pair in on_card:
+            prefix_ms = cuda_ms(torch, lambda: prefix(*pair), reps=5)
+            flipped = prefix(*pair)
+            for branch, fn in (("affine", aug.random_affine_pair), ("elastic", aug.random_elastic_pair)):
+                branch_ms[branch].append(prefix_ms + cuda_ms(torch, lambda: fn(gen, *flipped), reps=5))
+            del flipped
+        s_out, g_out = aug.augment_pair(gen, *on_card[0])
+        check(s_out.shape == on_card[0][0].shape and torch.isfinite(s_out).all().item()
+              and set(g_out.unique().tolist()) <= {0.0, 1.0}, "[17] augment_pair on the card")
+        host_s = {}
+        for branch, spatial in (("affine", transforms.RandomAffine()),
+                                ("elastic", transforms.RandomElasticDeformation())):
+            stack = transforms.Compose([transforms.RandomBiasField(), transforms.ZNormalization(),
+                                        transforms.RandomNoise(), transforms.RandomFlip(axes=(0,)), spatial])
+            t0 = time.perf_counter()
+            stack(subjects[0].copy(), np.random.default_rng(SEED))
+            host_s[branch] = time.perf_counter() - t0
+        aug_cfg = compose(unet_argv("host", "config.aug=true"), job_name="train", make_run_dir=False)
+        t0 = time.perf_counter()
+        transforms.build_transform(aug_cfg, True)(subjects[0].copy(), np.random.default_rng(SEED + 1))
+        host_s["build_transform"] = time.perf_counter() - t0
+        print(f"[17] {card}: augment_pair on the card, 256x256x128, warm, ms per volume (the two volumes; its "
+              f"steps up to the OneOf, then one branch, each by CUDA events): affine "
+              f"{' / '.join(f'{v:.3f}' for v in branch_ms['affine'])}, elastic "
+              f"{' / '.join(f'{v:.3f}' for v in branch_ms['elastic'])}; the host stack on one volume: "
+              f"build_transform(aug=true) {host_s['build_transform']:.3f} s, with the affine branch "
+              f"{host_s['affine']:.3f} s, with the elastic one {host_s['elastic']:.3f} s", flush=True)
+        src, gt = on_card[0]
+        center = (np.asarray(src.shape[1:], np.float32) - 1) / 2
+        m = aug.affine_matrix(torch.tensor([0.95, 1.05, 1.0]), torch.tensor([8.0, -5.0, 3.0]), torch.zeros(3),
+                              torch.from_numpy(center))
+        grid = np.zeros((3, 7, 7, 7), np.float32)
+        grid[:, 2:5, 2:5, 2:5] = np.random.default_rng(SEED + 17).uniform(-7.5, 7.5, (3, 3, 3, 3))
+        for name, fn, arg in (("affine", aug.affine_resample_pair, m),
+                              ("elastic", aug.elastic_resample_pair, torch.from_numpy(grid))):
+            got_s, got_g = (t.cpu() for t in fn(src, gt, arg.to(dev)))
+            want_s, want_g = fn(src.cpu(), gt.cpu(), arg)
+            scale = max(1.0, want_s.abs().max().item())
+            err = (got_s - want_s).abs().max().item()
+            agree = (got_g == want_g).float().mean().item()
+            check(err <= 1e-4 * scale, f"[17] {name} resample card vs CPU: max|diff| {err} > {1e-4 * scale}")
+            check(agree >= 0.999 and set(got_g.unique().tolist()) <= {0.0, 1.0},
+                  f"[17] {name} label card vs CPU: agreement {agree}")
+            print(f"[17] {name} resample with fixed parameters, card vs CPU: image max|diff| {err:.3g} (scale "
+                  f"{scale:.3g}), labels agree on {100 * agree:.4f}% of the voxels", flush=True)
+        del on_card, src, gt, s_out, g_out
+
+        # -- 17.2 per-step training with the augmentation on the card (data_backend=device)
+        aug_argv = unet_argv("aug", "config.aug=true", "config.samples_per_volume=16", "config.epochs=2")
+        out, run, losses, wall, got, _, _ = run_train("aug", aug_argv, 4, "aug=true")
+        check(len(losses) == 4, f"[17] aug=true losses {losses}")
+        ds = make_dataset(compose(aug_argv, job_name="train", make_run_dir=False), is_train=True, device=dev)
+        epoch_ms = []
+        for epoch in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen_e = ds.aug_generator(epoch)
+            for i in range(len(ds.volumes)):
+                ds.augmented(i, gen_e)
+            torch.cuda.synchronize()
+            epoch_ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"[17] {card}: train.main config=unet aug=true (device backend, 16 x {PATCH}^3 bf16): 2 epochs of 2 "
+              f"steps in {wall:.1f} s, launches {got}, losses {[round(v, 5) for v in losses]}; the augmentation of "
+              f"an epoch's 2 volumes {' / '.join(f'{v:.1f}' for v in epoch_ms)} ms (host clock, synchronised)",
+              flush=True)
+        del out, ds
+
+        # -- 17.3 epoch_scan, config=unet: train.main (the schedule reaches the replays), graph against eager
+        scan_argv = unet_argv("scan", "config.epoch_scan=true", "config.samples_per_volume=32", "config.epochs=2",
+                              "config.epochs_per_checkpoint=1", "config.scheduler_step_size=1",
+                              "config.scheduler_gamma=0")
+        # Adam's learning rate lives on the device: one capture, after step 0, then 3 + 4 replays
+        out, run, losses, wall, got, replayed, replay = run_train("scan", scan_argv, 1, "epoch_scan")
+        check(len(losses) == 8, f"[17] epoch_scan losses {losses}")
+        check((out["scan"].eager_steps, out["scan"].replays) == (1, 7),
+              f"[17] epoch_scan: {out['scan'].eager_steps} eager steps, {out['scan'].replays} replays")
+        names = [n for n, _ in out["model"].named_parameters()]
+        ckpts = [checkpoint.load_checkpoint(run / f"checkpoint_{e:04d}.ckpt")["params"] for e in (1, 2)]
+        frozen = all(torch.equal(ckpts[0][n], ckpts[1][n]) for n in names)
+        moved = any(not torch.equal(ckpts[0][n], ckpts[1][n]) for n in ckpts[0] if "running_" in n)
+        check(frozen and moved, f"[17] lr 0 in epoch 2: parameters unchanged {frozen}, statistics moved {moved}")
+        print(f"[17] train.main config=unet epoch_scan=true: 2 epochs of 4 steps in {wall:.1f} s: step 0 eager, "
+              f"launches {got}; 7 replays, one of which launched {replay} by name, launches {replayed}; losses "
+              f"{[round(v, 5) for v in losses]}; with lr 0 in epoch 2 every parameter equals epoch 1's bit for bit, "
+              f"the BatchNorm statistics moved", flush=True)
+        resume_argv = unet_argv("resume", "config.samples_per_volume=32", "config.epochs=3", "config.load_mode=1",
+                                f"config.ckpt={run / 'latest_checkpoint.ckpt'}")
+        _, _, losses, _, got, _, _ = run_train("resume", resume_argv, 4, "per-step resume of an epoch_scan checkpoint")
+        check(len(losses) == 4, f"[17] resume losses {losses}")
+        print(f"[17] a per-step train.main resumed the epoch_scan run's checkpoint (capturable Adam) for epoch 3: "
+              f"launches {got}, losses {[round(v, 5) for v in losses]}", flush=True)
+        del out, ckpts
+
+        want_3d = {"conv KD=3": 35, "wgrad KD=3": 18, "bce_dice_forward": 1, "bce_dice_backward": 1}
+        want_2d = {"conv KD=1": 35, "wgrad KD=1": 18, "bce_dice_forward": 1, "bce_dice_backward": 1}
+        for tag, argv, want in (
+            ("unet", unet_argv("api3d", "config.epoch_scan=true"), want_3d),
+            ("unet2d", ["config=unet2d", *base_argv("api2d", "config.epoch_scan=true")], want_2d),
+        ):
+            cfg = compose(argv, job_name="train", make_run_dir=False)
+            cmp = graph_against_eager(torch, dev, cfg, 4, tag)
+            replay, eager_step, (graph_l, eager_l, again_l) = cmp["replay"], cmp["eager_step"], cmp["losses"]
+            check(replay == eager_step == want, f"[17] {tag} hand kernels by name: one replay {replay}, one eager "
+                                                f"step {eager_step}, want {want}")
+            # step 0 ran eagerly in both (the graph's warm-up); step 1 is the graph's first replay
+            rel = abs(graph_l[1].item() - eager_l[1].item()) / abs(eager_l[1].item())
+            check(rel <= 1e-3, f"[17] {tag} first replayed step's loss graph {graph_l[1].item()} vs eager "
+                               f"{eager_l[1].item()}")
+            # the graph may differ from the eager loop only as much as the eager loop differs from itself
+            # (UNet2D's step is not reproducible run to run; UNet3D's is, bit for bit)
+            limit = 2 * cmp["spread"] + 1e-6
+            check(cmp["distance"] <= limit, f"[17] {tag} weights after an epoch, graph vs eager: relative L2 "
+                                            f"{cmp['distance']}, eager vs eager {cmp['spread']}")
+            times = cmp["ms"]
+            print(f"[17] {card}: epoch_scan {tag} ({cfg.patch_size} x {BATCH}, bf16): ms per step, CUDA events over "
+                  f"an epoch of 4 replays, in turns: graph {times['graph'][0]:.3f} / {times['graph'][1]:.3f}, eager "
+                  f"loop of the same step {times['eager'][0]:.3f} / {times['eager'][1]:.3f}; one replay's hand "
+                  f"kernels by name {replay} (one eager step's: {eager_step}); first replayed step's loss graph "
+                  f"{graph_l[1].item():.6f} / eager {eager_l[1].item():.6f} / eager again {again_l[1].item():.6f} "
+                  f"(graph vs eager relative {rel:.3g}); first epoch's losses graph {graph_l.tolist()}, eager "
+                  f"{eager_l.tolist()}, eager again {again_l.tolist()}; weights after the epoch, relative L2 graph "
+                  f"vs eager {cmp['distance']:.4g}, eager vs eager again {cmp['spread']:.4g} (limit "
+                  f"{limit:.4g}), with SGD in place of Adam {cmp['sgd_spread']:.4g}; operations torch flags as not "
+                  f"reproducible in one eager step: {cmp['nondeterministic']}", flush=True)
+        print(f"[17] {card}: UNet2D's bilinear upsampling (16 x 8^2 x 512 to 16 x 64^2 x 64, bf16), its backward "
+              f"run twice on the same inputs: max |difference| {upsample_backward_spread(torch, dev)}", flush=True)
+
+        # -- 17.5 dropout under the graph: res_unet at full width
+        drop_argv = ["config=res_unet", f"config.patch_size={PATCH}, {PATCH}, {PATCH}",
+                     *base_argv("drop", "config.epoch_scan=true", "config.samples_per_volume=16", "config.epochs=1")]
+        out, _, losses, _, got, replayed, replay = run_train("drop", drop_argv, None, "res_unet epoch_scan")
+        check(len(losses) == 2 and (out["scan"].eager_steps, out["scan"].replays) == (1, 1),
+              f"[17] res_unet epoch_scan losses {losses}, {out['scan'].eager_steps} eager steps, "
+              f"{out['scan'].replays} replays")
+        net = out["model"]
+        cfg = compose(drop_argv, job_name="train", make_run_dir=False)
+        (drop,) = [m for m in net.modules() if isinstance(m, Dropout)]  # called at five levels, five shapes
+        masks = {}
+
+        def record(module, args, result):
+            # the dropped positions into a buffer per call (by shape), made eagerly in the warm-up step
+            # and written by each replay
+            buf = masks.setdefault(tuple(result.shape), torch.zeros(result.shape, dtype=torch.bool, device=dev))
+            buf.copy_((result == 0) & (args[0] != 0))
+
+        hook = drop.register_forward_hook(record)
+        ds = make_dataset(cfg, is_train=True, device=dev)
+        opt = optim.make_optimizer(cfg, net.parameters())
+        step = train.make_train_step(models.make_forward(cfg, net), opt, train.make_loss_and_metric(cfg))
+        scan = make_epoch_scan(cfg, net, opt, step, stack_store([v[0] for v in ds.volumes]),
+                               stack_store([v[1] for v in ds.volumes]))
+        plan = build_epoch_plan(2, 32, BATCH, np.asarray([v[0].shape[:3] for v in ds.volumes]), cfg.patch_size,
+                                np.random.default_rng(SEED))
+        scan.start_epoch(*plan)
+        scan.capture()  # runs step 0; the replays run steps 1-3
+        seen = []
+        for _ in range(3):
+            scan.graph.replay()
+            seen.append([m.clone() for m in masks.values()])
+        hook.remove()
+        check(len(masks) == 5, f"[17] res_unet: dropout masks of {len(masks)} shapes, not 5")
+        shares = [torch.cat([m.flatten() for m in replay]).float().mean().item() for replay in seen]
+        check(all(not torch.equal(a, b) for r1, r2 in zip(seen, seen[1:]) for a, b in zip(r1, r2) if a.any()),
+              "[17] res_unet: a replay repeated a mask")
+        check(all(0.5 < s < 0.7 for s in shares) and torch.isfinite(scan.losses).all().item(),
+              f"[17] res_unet dropped shares {shares}, losses {scan.losses.tolist()}")
+        print(f"[17] res_unet (Dropout 0.6 at 5 levels) under epoch_scan: train.main 1 epoch of 2 steps, losses "
+              f"{[round(v, 5) for v in losses]}, launches {got} (step 0) and {replayed} (one replay, whose hand "
+              f"kernels by name were {replay}); 3 replays of its graph drew 3 different masks at every level, "
+              f"dropping {', '.join(f'{100 * s:.2f}%' for s in shares)} of the elements; losses "
+              f"{[round(v, 5) for v in scan.losses.tolist()]}", flush=True)
+        del out, net, scan, opt, step, ds, seen, masks
+
+        # -- 17.6 the worker loader (data_backend=grain)
+        grain_argv = unet_argv("grain", "config.data_backend=grain", "config.grain_workers=2",
+                               "config.samples_per_volume=16", "config.epochs=1")
+        cfg = compose(grain_argv, job_name="train", make_run_dir=False)
+        firsts = []
+        for workers in (0, 2):
+            batches = iter(WorkerPatchDataset(cfg, worker_count=workers, pin_memory=True))
+            firsts.append(next(batches))
+            batches.close()
+        check(all(torch.equal(a, b) for a, b in zip(*firsts)), "[17] grain: first batch of 2 workers != of 0")
+        check(firsts[1][0].is_pinned() and firsts[1][0].shape == (BATCH, PATCH, PATCH, PATCH, 1),
+              f"[17] grain batch {tuple(firsts[1][0].shape)}, pinned {firsts[1][0].is_pinned()}")
+        loader = WorkerPatchDataset(compose(grain_argv + ["config.samples_per_volume=64"], job_name="train",
+                                            make_run_dir=False), worker_count=2, pin_memory=True)
+        t0 = time.perf_counter()
+        stamps = [time.perf_counter() - t0 for _ in loader]
+        n = len(stamps)
+        rate = (n - 1) / (stamps[-1] - stamps[0])
+        _, _, losses, wall, got, _, _ = run_train("grain", grain_argv, 2, "grain")
+        check(len(losses) == 2, f"[17] grain losses {losses}")
+        print(f"[17] {card}: data_backend=grain, 2 workers, 16 x {PATCH}^3 from the two 256x256x128 volumes: the "
+              f"first batch equals grain_workers=0's; the loader alone {n} batches in {stamps[-1]:.2f} s, the first "
+              f"after {stamps[0]:.2f} s (spawn and load), then {rate:.2f} batches/s; train.main one epoch of 2 steps "
+              f"in {wall:.1f} s, launches {got}, losses {[round(v, 5) for v in losses]}; [17] took "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -2418,6 +2929,14 @@ def main() -> None:
     # -- 16. the 2-D zoo at full width: train, predict, new conv shapes, card vs CPU
     zoo2d_errs = zoo2d_phase(torch, dev, card, zero_counters, read_counters, unet2d_run[0] / "data")
     err2d = {key: max(err2d[key], zoo2d_errs[key]) for key in err2d}
+
+    # -- 17. the data backends and the epoch graph: device augmentation, epoch_scan, the worker loader
+    def add_launches(replayed):
+        """Launches a CUDA graph made past the wrappers in a main path's run, into the kernel line's."""
+        for name, n in replayed.items():
+            launches[name] += n
+
+    data_phase(torch, dev, card, zero_counters, read_counters, add_launches, unet2d_run[0] / "data")
 
     def entry(name, source, replaces, ms, plain_ms, bound, bound_by, library_ms, err, **extra):
         return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",

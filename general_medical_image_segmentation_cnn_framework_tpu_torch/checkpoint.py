@@ -99,4 +99,11 @@ def restore_training_state(
     optimizer.load_state_dict(state["opt_state"])
     for group, hp in zip(optimizer.param_groups, hyperparams):
         group.update(hp)
+        # a step count lives on the CPU, or with capturable=True (an epoch_scan run's
+        # graph) on the parameter's device: place it as this run's optimizer keeps it
+        for p in group["params"]:
+            step = optimizer.state.get(p, {}).get("step")
+            if isinstance(step, torch.Tensor):
+                where = p.device if group.get("capturable") else torch.device("cpu")
+                optimizer.state[p]["step"] = step.to(where)
     return int(state["epoch"])

@@ -385,7 +385,9 @@ class Dropout(nn.Module):
         self.seed = int(torch.randint(0, 2**62, (1,), generator=_generator(generator)))
         self._generators = {}
 
-    def _generator_on(self, device: torch.device) -> torch.Generator:
+    def generator_on(self, device: torch.device) -> torch.Generator:
+        """This module's generator on ``device`` (a tensor's device, with its index),
+        made at first use; a CUDA graph that replays the module registers it."""
         if device not in self._generators:
             self._generators[device] = torch.Generator(device=device).manual_seed(self.seed)
         return self._generators[device]
@@ -396,7 +398,7 @@ class Dropout(nn.Module):
         if self.p >= 1.0:
             return torch.zeros_like(x)
         shape = [1 if i in self.broadcast_dims else s for i, s in enumerate(x.shape)]
-        keep = torch.rand(shape, generator=self._generator_on(x.device), device=x.device) >= self.p
+        keep = torch.rand(shape, generator=self.generator_on(x.device), device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
@@ -108,3 +110,12 @@ def report(name: str) -> list:
             rows.append((current, int(m.group(1)), int(m.group(2) or 0), *spills))
             current = None
     return rows
+
+
+def count_launch(wrapper) -> None:
+    """One more on ``wrapper.launches`` for a kernel launched now. A launch
+    recorded into a CUDA graph under capture runs only when the graph is
+    replayed, past the wrapper, so it is not counted here
+    (``ops/epoch_scan.EpochScan`` counts its replays)."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

@@ -195,8 +195,7 @@ def _launch_counted(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: boo
     """The kernel on CUDA tensors, one more on the launch count of the
     wrapper of x's rank."""
     y = _launch(x, w, b, relu)
-    counted = conv3d_bn_relu if x.dim() == 5 else conv2d_bn_relu
-    counted.launches += 1
+    _build.count_launch(conv3d_bn_relu if x.dim() == 5 else conv2d_bn_relu)
     return y
 
 
@@ -314,7 +313,7 @@ def conv3d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     a CPU tensor runs the plain version."""
     dx = _input_grad(g, w, 3)
     if g.device.type == "cuda":
-        conv3d_input_grad.launches += 1
+        _build.count_launch(conv3d_input_grad)
     return dx
 
 
@@ -332,7 +331,7 @@ def conv2d_input_grad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     version."""
     dx = _input_grad(g, w, 2)
     if g.device.type == "cuda":
-        conv2d_input_grad.launches += 1
+        _build.count_launch(conv2d_input_grad)
     return dx
 
 

@@ -150,7 +150,7 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3d_wgrad_reference(x, g)
     dw = _launch(x, g)
-    conv3d_wgrad.launches += 1
+    _build.count_launch(conv3d_wgrad)
     return dw
 
 
@@ -166,7 +166,7 @@ def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv2d_wgrad_reference(x, g)
     dw = _launch(x, g)
-    conv2d_wgrad.launches += 1
+    _build.count_launch(conv2d_wgrad)
     return dw
 
 

@@ -139,7 +139,7 @@ def _forward(logits: torch.Tensor, gt: torch.Tensor, smooth: float) -> torch.Ten
     )
     if err != 0:
         raise RuntimeError(f"bce_dice forward: CUDA launch failed with cudaError {err}")
-    bce_dice_sums.launches += 1
+    _build.count_launch(bce_dice_sums)
     return out
 
 
@@ -153,7 +153,7 @@ def _backward(logits: torch.Tensor, gt: torch.Tensor, ct: torch.Tensor, denom: f
     )
     if err != 0:
         raise RuntimeError(f"bce_dice backward: CUDA launch failed with cudaError {err}")
-    bce_dice_grads.launches += 1
+    _build.count_launch(bce_dice_grads)
     return d
 
 

@@ -22,6 +22,12 @@ its EMA shadow tree:
 In optax only the moments, traces and counts are state; the learning rate,
 weight decay, momentum and clip are constants of the config, and
 ``checkpoint.restore_training_state`` keeps them so.
+
+For a CUDA graph of the train step (``ops/epoch_scan.py``),
+``make_capturable`` keeps Adam's and AdamW's step counts and learning rate
+on the device (``capturable=True``, a tensor ``lr`` that ``set_lr`` writes
+in place, so the per-epoch schedule reaches every replay); SGD's learning
+rate stays a float, which a graph bakes in.
 """
 
 from __future__ import annotations
@@ -68,6 +74,35 @@ def make_optimizer(config, params: Iterable[torch.Tensor]) -> torch.optim.Optimi
         clip = hp["grad_clip"]
         optimizer.register_step_pre_hook(lambda opt, args, kwargs: clip_by_global_norm_(opt, clip))
     return optimizer
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate: a float, or written in place into the
+    group's device tensor (``make_capturable``), which a captured step reads."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> bool:
+    """Prepare an optimizer on the card for CUDA graph capture. Adam and
+    AdamW (``capturable=True``): step counts on the parameters' device and
+    the learning rate a device tensor; True. SGD has no capturable state and
+    its learning rate stays a float: False (a graph of its step holds the
+    learning rate it was captured with)."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return False
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        group["capturable"] = True
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(p.device)
+    return True
 
 
 def grads(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:

@@ -18,8 +18,11 @@ StepLR (or cosine / poly) schedule with warmup; ``loss`` bce | dice | focal
 microbatches per optimizer step; ``ema_decay`` (``ema_checkpoint.ckpt``);
 ``val_interval`` validation (the sliding window, or ``whole_volume``, under
 ``tta``) with a ``best_checkpoint.ckpt``; ``remat`` / ``remat_policy`` (UNet3D); bf16
-compute with f32 parameters (``precision``); ``data_backend=device``;
-per-step loss/dice to TensorBoard; the latest checkpoint every epoch and
+compute with f32 parameters (``precision``); ``data_backend`` device (with
+``aug`` on the device), threaded or grain (``grain_workers`` worker
+processes); ``epoch_scan`` (the epoch as one CUDA graph of the train step,
+replayed for every step after the capture's eager step 0: ``ops/epoch_scan.py``); per-step loss/dice to
+TensorBoard; the latest checkpoint every epoch and
 ``checkpoint_%04d.ckpt`` every ``epochs_per_checkpoint``; resume with
 ``load_mode=1``; ``profile_dir`` (a ``torch.profiler`` trace of the loop);
 ``jax_debug_nans`` (``torch.autograd`` anomaly detection).
@@ -58,11 +61,10 @@ from .losses import bce_with_logits, cross_entropy, dice_loss, focal_loss, one_h
 from .metrics import dice_jaccard
 from .models import build_model, make_forward
 from .ops.fused_bce_dice import fused_bce_dice_metrics
-from .optim import EMA, fill_missing_grads, grads, make_optimizer, optimizer_name
+from .optim import EMA, fill_missing_grads, grads, make_optimizer, optimizer_name, set_lr
 
 # (key, test that it asks for something the port does not do, ROADMAP item)
 _UNPORTED = (
-    ("epoch_scan", bool, "queue 1 item 9"),
     ("spatial_sharding", bool, "queue 1 item 12"),
     ("param_sharding", lambda v: (v or "replicated") != "replicated", "queue 1 item 12"),
     ("pipeline_stages", lambda v: int(v or 0) > 1, "queue 1 item 12"),
@@ -264,13 +266,51 @@ def evaluate(config, model: torch.nn.Module, device: torch.device, logger) -> fl
     return float(np.mean(dices))
 
 
+def make_scan(config, model, optimizer, train_step, dataset):
+    """``epoch_scan``'s epoch function over ``dataset``'s volumes, stacked and
+    zero-padded to the largest extent, and their true extents [V, 3] (the
+    plan samples within them), after the JAX package's refusals, in its
+    words: ``grad_accum > 1``, ``ema_decay``, another backend (also the
+    device backend's fallback to the threaded one), ``aug`` over volumes of
+    several shapes."""
+    from .data.device_prep import DevicePatchDataset
+    from .ops.epoch_scan import make_epoch_scan, stack_store
+
+    if int(getattr(config, "grad_accum", 1) or 1) > 1:
+        raise ValueError(
+            "grad_accum > 1 is a per-step-loop feature; epoch_scan already "
+            "compiles the whole epoch into one program (drop epoch_scan, or "
+            "lower batch_size instead)"
+        )
+    if float(getattr(config, "ema_decay", 0.0) or 0.0):
+        raise ValueError(
+            "ema_decay is a per-step-loop feature (the whole-epoch scan "
+            "does not thread an EMA tree); drop epoch_scan to use it"
+        )
+    if not isinstance(dataset, DevicePatchDataset):
+        raise ValueError("epoch_scan requires data_backend=device")
+    true_shapes = np.asarray([v[0].shape[:3] for v in dataset.volumes])
+    if dataset.aug and not (true_shapes == true_shapes[0]).all():
+        raise ValueError(
+            "epoch_scan with aug=true needs uniform volume shapes: the "
+            "on-device augmentation would skew znorm statistics on "
+            "zero-padded storage. Use data_backend=device without "
+            "epoch_scan (per-volume true-shape augmentation), or "
+            "resample the dataset to one shape."
+        )
+    volumes = stack_store([v[0] for v in dataset.volumes])
+    labels = stack_store([v[1] for v in dataset.volumes])
+    return make_epoch_scan(config, model, optimizer, train_step, volumes, labels), true_shapes
+
+
 def _to_device(batch, device: torch.device) -> torch.Tensor:
     t = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(batch)
     return t.to(device, non_blocking=True)
 
 
 def train(config, model=None, logger=None) -> Dict[str, Any]:
-    """Run the training loop; returns the final state (for tests)."""
+    """Run the training loop; returns the final state (for tests), with
+    ``scan``, the ``epoch_scan`` run's ``EpochScan`` (None otherwise)."""
     device = resolve_device(config)
     refuse_unported_keys(config)
     val_interval = int(getattr(config, "val_interval", 0) or 0)
@@ -317,6 +357,12 @@ def train(config, model=None, logger=None) -> Dict[str, Any]:
     accum = int(getattr(config, "grad_accum", 1) or 1)
     _warn_accum_semantics(config, accum)
     train_step = make_train_step(make_forward(config, model), optimizer, loss_and_metric, accum)
+    scan = None
+    if getattr(config, "epoch_scan", False):  # one CUDA graph of the step, replayed for every step of an epoch
+        from .ops.epoch_scan import build_epoch_plan
+
+        scan, true_shapes = make_scan(config, model, optimizer, train_step, dataset)
+        plan_rng = np.random.default_rng(int(getattr(config, "seed", 0) or 0))
 
     lr_schedule = make_scheduler(config)
     use_scheduler = getattr(config, "use_scheduler", True)
@@ -344,8 +390,7 @@ def train(config, model=None, logger=None) -> Dict[str, Any]:
         for epoch in range(elapsed_epochs + 1, epochs + 1):
             loss_meter.reset(), dice_meter.reset(), load_meter.reset(), step_meter.reset()
             if use_scheduler:  # stepped per epoch, into every param group: this epoch's lr follows epoch-1 steps
-                for group in optimizer.param_groups:
-                    group["lr"] = lr_schedule(epoch - 1)
+                set_lr(optimizer, lr_schedule(epoch - 1))
 
             def _log_step(p):
                 # read a step's scalars (waits for the card to finish that step)
@@ -366,28 +411,48 @@ def train(config, model=None, logger=None) -> Dict[str, Any]:
                     f"Loss: {loss_meter.val}\nDice: {dice_meter.val}\n"
                 )
 
-            load_start = time.time()
-            pending = None
-            for i, (x, y) in enumerate(dataset):
-                x, y = _to_device(x, device), _to_device(y, device)
-                load_time = time.time() - load_start
-                step_start = time.time()
-                loss, dice = train_step(x, y)
-                if ema is not None:
-                    ema.update(model)
-                # one-step-deferred scalar fetch: float() waits for the card, so
-                # step i is read only after step i+1 is queued, and the card stays
-                # busy through the host's logging; step_time is then the
-                # pipelined wall time per step
+            if scan is not None:
+                vol_idx, origins = build_epoch_plan(
+                    len(dataset.volumes), dataset.samples_per_volume, dataset.batch_size, true_shapes,
+                    config.patch_size, plan_rng,
+                )
+                t0 = time.time()
+                losses, dices = scan(vol_idx, origins)
+                losses, dices = losses.tolist(), dices.tolist()  # the epoch's one read from the card
+                epoch_time = time.time() - t0
+                for i, (loss_f, dice_f) in enumerate(zip(losses, dices)):
+                    iteration += 1
+                    writer.add_scalar("Training/Loss", loss_f, iteration)
+                    writer.add_scalar("Training/dice", dice_f, iteration)
+                    loss_meter.update(loss_f, dataset.batch_size)
+                    dice_meter.update(dice_f, dataset.batch_size)
+                    logger.info(f"\nEpoch: {epoch} Batch: {i} (scan)\nLoss: {loss_f}\nDice: {dice_f}\n")
+                step_meter.update(epoch_time / max(len(losses), 1))
+                progress.update(batch_task, completed=len(losses))
+                logger.info(f"\nEpoch: {epoch} (scan, {len(losses)} steps in {epoch_time:.3f}s)\n")
+            else:
+                load_start = time.time()
+                pending = None
+                for i, (x, y) in enumerate(dataset):
+                    x, y = _to_device(x, device), _to_device(y, device)
+                    load_time = time.time() - load_start
+                    step_start = time.time()
+                    loss, dice = train_step(x, y)
+                    if ema is not None:
+                        ema.update(model)
+                    # one-step-deferred scalar fetch: float() waits for the card, so
+                    # step i is read only after step i+1 is queued, and the card stays
+                    # busy through the host's logging; step_time is then the
+                    # pipelined wall time per step
+                    if pending is not None:
+                        _log_step(pending)
+                    pending = (i, loss, dice, x.shape[0], load_time, step_start)
+                    load_start = time.time()
                 if pending is not None:
                     _log_step(pending)
-                pending = (i, loss, dice, x.shape[0], load_time, step_start)
-                load_start = time.time()
-            if pending is not None:
-                _log_step(pending)
 
             if use_scheduler:
-                logger.info(f"Learning rate:  {optimizer.param_groups[0]['lr']}")
+                logger.info(f"Learning rate:  {float(optimizer.param_groups[0]['lr'])}")
             logger.info(
                 f"\nEpoch {epoch} used time:  {load_meter.sum + step_meter.sum:.3f} s\n"
                 f"Loss Avg:  {loss_meter.avg}\nDice Avg:  {dice_meter.avg}\n"
@@ -423,6 +488,7 @@ def train(config, model=None, logger=None) -> Dict[str, Any]:
         "loss": loss_meter.avg,
         "dice": dice_meter.avg,
         "best_val_dice": best_val_dice,
+        "scan": scan,
     }
 
 

@@ -8,9 +8,10 @@ program and a load of it, the offline filters, a forward of each of the nine 3-D
 zoo's first part at a narrow width, and a forward and a train step of each of the six of its second
 part (densevoxelnet, densenet, fcn3d, highres2dnet, segnet, unetpp) at their fixed widths and test sizes,
 the four of its third part (fcn2d, deeplab, pspnet, miniseg) built at their JAX widths and a forward and a
-train step of MiniSeg, a forward and a train step of each transformer (unetr, vtnet) at a narrow width; no source of the port or ``chip_smoke.py`` imports
-any of them; and ``chip_smoke.py`` refuses to run where there is no CUDA
-card."""
+train step of MiniSeg, a forward and a train step of each transformer (unetr, vtnet) at a narrow width, the
+on-device augmentation and an ``epoch_scan`` epoch; ``grain`` is blocked too (the card's machine has none);
+no source of the port or ``chip_smoke.py`` imports any of them; and ``chip_smoke.py`` refuses to run where
+there is no CUDA card."""
 
 import os
 import subprocess
@@ -30,6 +31,7 @@ import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["{JAX_PACKAGE}"] = None
+sys.modules["grain"] = None
 import importlib, pkgutil
 import numpy as np
 import torch
@@ -143,7 +145,19 @@ for network, args, patch in (("unetr", ((32, 16, 16), 1, 2, 32, 16, 4), (32, 16,
     step = make_train_step(net, make_optimizer(cfgz, net.train().parameters()), make_loss_and_metric(cfgz))
     loss, dice = step(torch.randn(2, *patch, 1), (torch.rand(2, *patch, 1) > 0.5).float())
     assert torch.isfinite(loss) and 0 <= float(dice) <= 1, network
-blocked = ("jax", "flax", "jaxlib", "{JAX_PACKAGE}")
+from {PORT}.data.device_aug import augment_pair
+from {PORT}.ops.epoch_scan import build_epoch_plan, make_epoch_scan, stack_store
+src, gt = augment_pair(torch.Generator().manual_seed(0), torch.randn(1, 20, 20, 20), (torch.rand(1, 20, 20, 20) > 0.5).float())
+assert src.shape == (1, 20, 20, 20) and torch.isfinite(src).all() and set(gt.unique().tolist()) <= {{0.0, 1.0}}
+cfgs = ConfigDict(out_classes=2, loss="bce", optimizer="adam", init_lr=1e-3, patch_size=(16, 16, 16), aug=True, seed=0)
+net = UNet3D(1, 2, 2).train()
+opt = make_optimizer(cfgs, net.parameters())
+vols = [src.movedim(0, -1), gt.movedim(0, -1)]
+scan = make_epoch_scan(cfgs, net, opt, make_train_step(net, opt, make_loss_and_metric(cfgs)), stack_store(vols[:1] * 2),
+                       stack_store(vols[1:] * 2))
+losses, dices = scan(*build_epoch_plan(2, 2, 2, (20, 20, 20), (16, 16, 16), np.random.default_rng(0)))
+assert losses.shape == (2,) and torch.isfinite(losses).all()
+blocked = ("jax", "flax", "jaxlib", "grain", "{JAX_PACKAGE}")
 loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in blocked]
 assert not loaded, loaded
 print("ok")
@@ -165,7 +179,7 @@ def test_port_sources_never_import_jax():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0]
-                assert top not in ("jax", "flax", "jaxlib", JAX_PACKAGE), f"{path}: {line}"
+                assert top not in ("jax", "flax", "jaxlib", "grain", JAX_PACKAGE), f"{path}: {line}"
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -33,6 +33,7 @@ from general_medical_image_segmentation_cnn_framework_tpu_torch.convert import (
 )
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data import make_dataset
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data.device_prep import DevicePatchDataset
+from general_medical_image_segmentation_cnn_framework_tpu_torch.data.grain_pipeline import WorkerPatchDataset
 from general_medical_image_segmentation_cnn_framework_tpu_torch.data.pipeline import PatchQueueDataset
 from general_medical_image_segmentation_cnn_framework_tpu_torch.models.three_d.unet3d import UNet3D
 from general_medical_image_segmentation_cnn_framework_tpu_torch.nn import init as port_init
@@ -240,8 +241,11 @@ def test_train_cli_writes_checkpoints_predict_reads_them_and_resume_continues(sy
     torch.save(latest, tmp_path / "sgd.ckpt")
     with pytest.raises(ValueError, match="optimizer 'sgd'"):
         port_train.main(resume[:-1] + [f"config.ckpt={tmp_path / 'sgd.ckpt'}"])
-    with pytest.raises(NotImplementedError, match="epoch_scan=True \\(ROADMAP queue 1 item 9\\)"):
-        port_train.main(resume + ["config.epoch_scan=true"])
+    # epoch_scan trains (tests/test_torch_port_epoch_scan.py); here it resumes from the per-step run's file
+    port_train.main(_train_args(synthetic_dataset, tmp_path / "resume_scan", "config.epochs=3", "config.load_mode=1",
+                                f"config.ckpt={run / 'latest_checkpoint.ckpt'}", "config.epoch_scan=true"))
+    (run3,) = (tmp_path / "resume_scan").glob("train-*/*")
+    assert load_checkpoint(run3 / "latest_checkpoint.ckpt")["epoch"] == 3
     with pytest.raises(NotImplementedError, match="pipeline_stages=2 \\(ROADMAP queue 1 item 12\\)"):
         port_train.main(resume + ["config.pipeline_stages=2"])
 
@@ -266,12 +270,12 @@ def test_device_dataset_crops_the_znormalised_volumes(synthetic_dataset):
     assert ds.epoch_plan(1) != plan
     cfg.device_dataset_gb = 1e-9
     assert isinstance(make_dataset(cfg), PatchQueueDataset)  # over budget: the threaded backend
-    cfg.device_dataset_gb, cfg.aug = 8.0, True
-    with pytest.raises(NotImplementedError, match="device_aug"):
-        make_dataset(cfg)
-    cfg.data_backend = "grain"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_dataset(cfg)
+    cfg.device_dataset_gb, cfg.aug = 8.0, True  # the raw volumes, augmented on the device each epoch
+    augmented = make_dataset(cfg)
+    assert isinstance(augmented, DevicePatchDataset) and augmented.aug
+    assert torch.equal(augmented.volumes[0][0][..., 0], torch.from_numpy(subjects[0].source.data[0]))
+    cfg.data_backend = "grain"  # the worker loader (tests/test_torch_port_grain.py)
+    assert isinstance(make_dataset(cfg), WorkerPatchDataset)
 
 
 def test_train_cli_unet2d_trains_on_slices_and_refuses_a_deep_patch(synthetic_dataset, tmp_path):
